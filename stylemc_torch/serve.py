@@ -1,0 +1,308 @@
+"""Batch edit serving (counterpart of `stylemc_tpu/serve.py`).
+
+Device-resident weights, power-of-two batch buckets, uint8 NHWC output made
+on the device, and chunked rendering whose device→host copies overlap the
+next chunk's compute.
+
+Usage:
+    editor = BatchEditor.from_files(network="ffhq.npz",
+                                    direction="runs/m2f/direction_x.npz")
+    imgs_u8 = editor.edit_seeds([1, 2, 3], change_power=2.0)
+    pairs_u8 = editor.edit_styles(styles, change_power=1.5, pairs=True)
+"""
+
+from __future__ import annotations
+
+import bisect
+import dataclasses
+import queue
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .convert import params_from_numpy
+from .device import DeviceLike, resolve_device
+from .edit import N_STYLE_CHANNELS, STYLE_DIM, to_u8_nhwc
+from .models.stylegan2.generator import (GeneratorConfig, inference_cfg,
+                                         mapping, synthesis, w_to_s)
+
+
+def _apply_precision(cfg: GeneratorConfig, precision: str) -> GeneratorConfig:
+    """Serving precision policy. 'fp32' = parity with the offline pipeline;
+    'bf16-upper' = bfloat16 on the top num_fp16_res blocks; 'bf16' = every
+    block bfloat16."""
+    if precision == "fp32":
+        return dataclasses.replace(cfg, low_precision_dtype="float32")
+    if precision == "bf16-upper":
+        return dataclasses.replace(cfg, low_precision_dtype="bfloat16")
+    if precision == "bf16":
+        return dataclasses.replace(
+            cfg, low_precision_dtype="bfloat16",
+            num_fp16_res=len(cfg.block_resolutions))
+    raise ValueError(f"unknown precision {precision!r}; "
+                     "expected fp32 | bf16-upper | bf16")
+
+
+class BatchEditor:
+    """Seed/style → edited-image service on one device.
+
+    Batch sizes bucket to powers of two up to `max_batch`, padded with the
+    last row. With precision 'fp32' on a CUDA device the constructor turns
+    TF32 off for cuDNN convolutions and matmuls (process-wide torch flags):
+    cuDNN convolutions run in TF32 by default, which drifts from fp32.
+    """
+
+    def __init__(self, gen_cfg: GeneratorConfig, gen_params,
+                 direction: Optional[np.ndarray] = None,
+                 max_batch: int = 64, truncation_psi: float = 0.7,
+                 noise_mode: str = "const", precision: str = "fp32",
+                 pipeline_chunk: int = 16, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        # forward-only service → pad_dilate up-convs
+        self.cfg = inference_cfg(_apply_precision(gen_cfg, precision))
+        if precision == "fp32" and self.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.params = params_from_numpy(gen_params, self.device)
+        self.direction = None if direction is None else self._on_device(
+            direction)
+        # named directions, selected per request
+        self.directions: Dict[str, torch.Tensor] = {}
+        self.truncation_psi = truncation_psi
+        self.noise_mode = noise_mode
+        self.buckets = [b for b in (1, 2, 4, 8, 16, 32, 64) if b <= max_batch]
+        # Large requests render in pipeline_chunk sub-batches; each chunk's
+        # uint8 result is copied to pinned host memory asynchronously, so the
+        # next chunk's compute overlaps it. At most max_inflight_chunks
+        # chunks are in flight, which bounds device memory for any request
+        # size. 0 disables chunking.
+        self.pipeline_chunk = pipeline_chunk
+        self.max_inflight_chunks = 4
+
+    def _on_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    # ------------------------------------------------------------- plumbing
+
+    def _bucket(self, n: int) -> int:
+        i = bisect.bisect_left(self.buckets, n)
+        return self.buckets[min(i, len(self.buckets) - 1)]
+
+    def _pad(self, x: torch.Tensor, b: int) -> torch.Tensor:
+        n = x.shape[0]
+        if n == b:
+            return x
+        return torch.cat([x, x[-1:].expand(b - n, *x.shape[1:])], dim=0)
+
+    def _render_u8(self, s: torch.Tensor) -> torch.Tensor:
+        return to_u8_nhwc(synthesis(self.params, self.cfg, s,
+                                    noise_mode=self.noise_mode))
+
+    def add_direction(self, name: str, direction) -> None:
+        """Register a named direction for per-request selection."""
+        self.directions[name] = self._on_device(direction)
+
+    def _direction(self, name: Optional[str] = None) -> torch.Tensor:
+        if name is not None:
+            if name not in self.directions:
+                raise KeyError(f"unknown direction {name!r}; loaded: "
+                               f"{sorted(self.directions)}")
+            return self.directions[name]
+        if self.direction is None:
+            raise ValueError("no direction loaded")
+        return self.direction
+
+    def _start_copy(self, a: torch.Tensor):
+        """Start a device→host copy; returns (host tensor, event or None)."""
+        if self.device.type != "cuda":
+            return a, None
+        host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+        host.copy_(a, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    # -------------------------------------------------------------- public
+
+    @torch.inference_mode()
+    def styles_from_seeds(self, seeds: Sequence[int]) -> torch.Tensor:
+        """Seeds → styles [N, 26, 512] on the device; z for seed s is
+        np.random.RandomState(s).randn(1, z_dim)."""
+        zs = np.concatenate([np.random.RandomState(s).randn(1, self.cfg.z_dim)
+                             for s in seeds]).astype(np.float32)
+        out = []
+        for lo in range(0, len(seeds), self.buckets[-1]):
+            chunk = torch.from_numpy(zs[lo:lo + self.buckets[-1]]).to(
+                self.device)
+            z = self._pad(chunk, self._bucket(chunk.shape[0]))
+            ws = mapping(self.params, self.cfg, z,
+                         truncation_psi=self.truncation_psi)
+            out.append(w_to_s(self.params, self.cfg, ws)[:chunk.shape[0]])
+        return torch.cat(out, dim=0)
+
+    @torch.inference_mode()
+    def edit_styles(self, styles, change_power: float = 2.0,
+                    pairs: bool = False,
+                    direction_name: Optional[str] = None) -> np.ndarray:
+        """styles [N, 26, 512] → uint8 [N, H, W, 3]; pairs=True returns
+        [orig | edited] side by side; direction_name selects a named
+        direction (default: the constructor's)."""
+        styles = torch.as_tensor(styles, dtype=torch.float32,
+                                 device=self.device)
+        d = self._direction(direction_name)
+        step = min(self.pipeline_chunk or self.buckets[-1], self.buckets[-1])
+        pending: List[Tuple[int, torch.Tensor, Optional[torch.cuda.Event]]] = []
+        outs: List[np.ndarray] = []
+
+        def fetch(n, host, ev):
+            if ev is not None:
+                ev.synchronize()
+            outs.append(host[:n].numpy())
+
+        for lo in range(0, styles.shape[0], step):
+            chunk = styles[lo:lo + step]
+            n = chunk.shape[0]
+            padded = self._pad(chunk, self._bucket(n))
+            img = self._render_u8(padded + d * change_power)
+            if pairs:
+                img = torch.cat([self._render_u8(padded), img], dim=2)
+            pending.append((n, *self._start_copy(img)))
+            if len(pending) >= max(1, self.max_inflight_chunks):
+                fetch(*pending.pop(0))
+        for item in pending:
+            fetch(*item)
+        return np.concatenate(outs, axis=0)
+
+    def edit_seeds(self, seeds: Sequence[int], change_power: float = 2.0,
+                   pairs: bool = False,
+                   direction_name: Optional[str] = None) -> np.ndarray:
+        return self.edit_styles(self.styles_from_seeds(seeds),
+                                change_power=change_power, pairs=pairs,
+                                direction_name=direction_name)
+
+    def warmup(self):
+        """Render every bucket a request can reach once (chunks of
+        pipeline_chunk pad up to their bucket), so first requests pay no
+        kernel build or library initialisation."""
+        step = min(self.pipeline_chunk or self.buckets[-1], self.buckets[-1])
+        top = self._bucket(step)
+        for b in self.buckets:
+            if b > top:
+                break
+            s = torch.zeros((b, N_STYLE_CHANNELS, STYLE_DIM),
+                            device=self.device)
+            self.edit_styles(s, change_power=0.0)
+
+    # ------------------------------------------------------------- loading
+
+    @classmethod
+    def from_files(cls, network: str, direction: Optional[str] = None,
+                   directions: Optional[Dict[str, str]] = None,
+                   **kwargs) -> "BatchEditor":
+        """network: NVIDIA .pkl or native .npz; direction: npz with key 's';
+        directions: {name: path} registers named directions."""
+        from .io import load_generator
+
+        device = resolve_device(kwargs.pop("device", None))
+        cfg, params = load_generator(network, device=device)
+        d = np.load(direction)["s"] if direction else None
+        editor = cls(cfg, params, direction=d, device=device, **kwargs)
+        for name, path in (directions or {}).items():
+            editor.add_direction(name, np.load(path)["s"])
+        return editor
+
+
+class CoalescingDispatcher:
+    """Merge concurrent same-parameter requests into one batched dispatch.
+
+    Submissions enqueue and block; one worker thread drains the queue,
+    groups items by `key` (only identical parameters may share a call),
+    concatenates each group along axis 0, runs ONE editor call, and splits
+    the result back to the waiting submitters. The first item of a drain
+    waits up to max_wait_ms for company; a full bucket dispatches at once.
+
+    The worker is also the single device owner: all device work of the
+    coalesced path is issued from its thread.
+    """
+
+    _STOP = object()
+
+    def __init__(self, max_batch: int = 64, max_wait_ms: float = 3.0):
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_ms / 1e3
+        self._q: "queue.Queue" = queue.Queue()
+        self.batched_calls = 0
+        self.coalesced_items = 0
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name="coalescing-dispatcher")
+        self._worker.start()
+
+    def submit(self, key, rows: np.ndarray, fn) -> np.ndarray:
+        """Block until `fn` ran on a batch containing `rows`; returns this
+        submission's slice of the result. `fn` must map a [N, ...] batch to
+        [N, ...] results and be the same for every submission with the
+        same `key`."""
+        item = {"key": key, "rows": rows, "fn": fn,
+                "ev": threading.Event(), "out": None, "err": None}
+        self._q.put(item)
+        item["ev"].wait()
+        if item["err"] is not None:
+            raise item["err"]
+        return item["out"]
+
+    def close(self):
+        self._q.put(self._STOP)
+        self._worker.join(timeout=5)
+
+    # ------------------------------------------------------------ internal
+
+    def _drain(self, first) -> list:
+        """Collect items for up to max_wait_s / max_batch rows."""
+        batch = [first]
+        rows = first["rows"].shape[0]
+        deadline = time.perf_counter() + self.max_wait_s
+        while rows < self.max_batch:
+            remaining = deadline - time.perf_counter()
+            if remaining <= 0:
+                break
+            try:
+                item = self._q.get(timeout=remaining)
+            except queue.Empty:
+                break
+            if item is self._STOP:
+                self._q.put(item)  # re-deliver to the loop
+                break
+            batch.append(item)
+            rows += item["rows"].shape[0]
+        return batch
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is self._STOP:
+                return
+            batch = self._drain(item)
+            groups: Dict = {}
+            for it in batch:
+                groups.setdefault(it["key"], []).append(it)
+            for items in groups.values():
+                try:
+                    rows = np.concatenate([it["rows"] for it in items],
+                                          axis=0)
+                    out = items[0]["fn"](rows)
+                    self.batched_calls += 1
+                    self.coalesced_items += len(items)
+                    lo = 0
+                    for it in items:
+                        n = it["rows"].shape[0]
+                        it["out"] = out[lo:lo + n]
+                        lo += n
+                except Exception as e:  # noqa: BLE001 — deliver to callers
+                    for it in items:
+                        it["err"] = e
+                finally:
+                    for it in items:
+                        it["ev"].set()

@@ -1,0 +1,185 @@
+"""stylemc_torch stands alone and never runs on the CPU unasked.
+
+* Importing every module of the port loads no JAX and nothing of
+  stylemc_tpu (checked in a fresh interpreter, and by a scan of the source).
+* With no CUDA device, entry points without device="cpu" raise.
+* The kernel wrapper has no silent path: a tensor that is neither on the CPU
+  nor on CUDA raises, and a kernel build without a working nvcc raises with
+  nvcc's output.
+* On a machine with a card, the kernel is held against its plain version
+  (marked `cuda`; skips here).
+"""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from stylemc_torch.ops import setup_filter_np
+from stylemc_torch.ops.kernels import build
+from stylemc_torch.ops.kernels.upfirdn2d import (
+    _canonical_taps, upsample2d_kernel, upsample2d_plain)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "stylemc_torch"
+
+
+def _modules():
+    mods = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_import_loads_no_jax_and_no_stylemc_tpu():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'stylemc_tpu'))\n"
+        "print(len(sys.modules)); assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(_modules()) >= 20
+
+
+def test_source_scan_has_no_jax_or_stylemc_tpu_import():
+    # import statements, and dynamic imports naming either package
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|stylemc_tpu)\b"
+        r"|import_module\(\s*['\"](jax|stylemc_tpu)"
+        r"|__import__\(\s*['\"](jax|stylemc_tpu)", re.M)
+    paths = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(paths) >= 20
+    for path in paths:
+        hits = [m.group(0) for m in pattern.finditer(path.read_text())]
+        assert not hits, (path, hits)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from stylemc_torch.io import load_generator, save_native
+    from stylemc_torch.models.stylegan2.generator import (
+        GeneratorConfig, init_generator_params)
+    from stylemc_torch.serve import BatchEditor
+
+    cfg = GeneratorConfig(img_resolution=8, channel_base=64, channel_max=8,
+                          mapping_layers=1)
+    params = init_generator_params(torch.Generator().manual_seed(0), cfg,
+                                   device="cpu")
+    net = str(tmp_path / "net.npz")
+    save_native(net, cfg, params)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: BatchEditor(cfg, params),
+                 lambda: BatchEditor.from_files(net),
+                 lambda: load_generator(net),
+                 lambda: init_generator_params(torch.Generator(), cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # explicit CPU still works
+    assert BatchEditor(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrapper_has_no_silent_path():
+    f = setup_filter_np([1, 3, 3, 1])
+    x = torch.empty((1, 3, 4, 4), device="meta")
+    before = upsample2d_kernel.launches
+    with pytest.raises(ValueError, match="device"):
+        upsample2d_kernel(x, f)
+    assert upsample2d_kernel.launches == before
+
+
+def test_build_raises_with_nvcc_output(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "b")
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel\n")
+    monkeypatch.setenv("PATH", str(tmp_path / "nowhere"))
+    monkeypatch.setenv("CUDACXX", str(tmp_path / "missing-nvcc"))
+    monkeypatch.setattr(build.os.path, "isfile",
+                        lambda p: str(p).startswith(str(tmp_path)) and
+                        os.path.exists(p))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_library("k", [src])
+
+    fake = tmp_path / "fake-nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no such intrinsic' >&2\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDACXX", str(fake))
+    with pytest.raises(RuntimeError, match="no such intrinsic"):
+        build.build_library("k", [src])
+    assert not list((tmp_path / "b").rglob("*.so"))
+
+
+def test_build_caches_by_content(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "b")
+    calls = tmp_path / "calls"
+    fake = tmp_path / "fake-nvcc"
+    # writes the file named after -o, and counts its invocations
+    fake.write_text('#!/bin/sh\necho x >> "%s"\nwhile [ "$1" != "-o" ]; do '
+                    'shift; done\necho lib > "$2"\n' % calls)
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDACXX", str(fake))
+    src = tmp_path / "k.cu"
+    src.write_text("// v1\n")
+    lib1 = build.build_library("k", [src])
+    assert build.build_library("k", [src]) == lib1 and lib1.exists()
+    src.write_text("// v2\n")
+    lib2 = build.build_library("k", [src])
+    assert lib2 != lib1
+    assert calls.read_text().count("x") == 2
+    assert (lib1.parent / "build.log").exists()
+    assert "-gencode" in (lib1.parent / "build.log").read_text()
+
+
+def test_chip_smoke_yardstick_and_bound():
+    taps = (0.1, 0.5, 0.9, 0.3)  # asymmetric: pins the tap orientation
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 5, 6, 10)
+                         .astype(np.float32))
+    weight = chip_smoke.library_weight(taps, 5, "cpu")
+    torch.testing.assert_close(chip_smoke.library_upsample(x, weight),
+                               upsample2d_plain(x, taps), rtol=0, atol=1e-6)
+    ms, by = chip_smoke.upsample_bound((16, 3, 128, 128))
+    assert by == "bytes"
+    # 3.1 MB in + 12.6 MB out at 3.35 TB/s ≈ 4.7 µs
+    assert abs(ms - 20 * 16 * 3 * 128 * 128 / 3.35e12 * 1e3) < 1e-12
+    assert 4.6e-3 < ms < 4.8e-3
+
+
+def test_chip_smoke_fails_without_cuda():
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+@pytest.mark.cuda
+def test_upsample_kernel_matches_plain_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f = setup_filter_np([1, 3, 3, 1])
+    taps = _canonical_taps(f, 4.0, False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape in chip_smoke.CHAIN_SHAPES + chip_smoke.EXTRA_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        before = upsample2d_kernel.launches
+        got = upsample2d_kernel(x, f)
+        assert upsample2d_kernel.launches == before + 1
+        torch.testing.assert_close(got, upsample2d_plain(x, taps), rtol=0,
+                                   atol=chip_smoke.KERNEL_TOL)
+    with pytest.raises(NotImplementedError, match="_downsample2x_core"):
+        upsample2d_kernel(torch.zeros((1, 3, 4, 4), device="cuda",
+                                      requires_grad=True), f)
