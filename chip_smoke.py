@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive stylemc_torch's serving path on one CUDA card and check it.
+"""Drive stylemc_torch's serving and training paths on one CUDA card and
+check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -10,25 +11,44 @@ script exits non-zero:
 
   env     card name, nvidia-smi power limit, torch/CUDA versions, TF32 flags
           (both turned off: the fp32 policy compares against fp32 references)
-  build   nvcc build of the kernel library from the checkout's sources
-  kernel  the upsample2x kernel against its plain torch version at every
-          ToRGB chain shape of FFHQ-256 at batch 16, the 1024 px plane and
-          an odd shape; max |err| <= 1e-5; kernel, plain, library-call and
-          bound times (device time: CUDA events around calls queued behind
-          a sleep kernel), and the wrapper's time over back-to-back calls,
-          which includes its host cost
+  build   nvcc builds of both kernel libraries from the checkout's sources,
+          started together
+  kernel  B1 (upsample2x) against its plain torch version at every ToRGB
+          chain shape of FFHQ-256 at batch 16, the 1024 px plane and an odd
+          shape; B2 (downsample2x) at the training step's backward shapes
+          [4,3,2h,2h], the 1024 px plane and an odd shape; max |err| <= 1e-5;
+          kernel, plain, library-call and bound times (device time: CUDA
+          events around calls queued behind a sleep kernel), and the
+          wrapper's time over back-to-back calls, which includes its host cost
+  grad    first- and second-order gradients through upsample2d_kernel and
+          downsample2d_kernel on the card against the same computation
+          through the plain versions (relative L2 <= 1e-5)
+  train   find_direction at full width: the FFHQ-256 generator below
+          (random weights from a seed, polyphase up-convs), CLIP ViT-B/32
+          and ViT-B/16 and ArcFace IR-SE-50 with random weights from seeds,
+          129 seeds, batch 4, clip_type double, fp32, one epoch (33 steps);
+          precompute and step times, images/s, peak memory, one step's
+          device time by kernel name and the idle share, each model's
+          fwd+bwd time, and the per-layer rates of the generator's
+          polyphase up-convs; it runs before any other phase traces the
+          card with the profiler
+  train_parity  one full-width step (batch 2, seeds 1-2) from the same
+          direction on the card and on the CPU: losses within rtol 1e-4,
+          Δs gradients within relative L2 1e-3
   serve   full-width FFHQ-256 generator (random weights from a seed) saved
           as a native .npz, BatchEditor.from_files + warmup, an HTTP server
           answering /edit and /stats; images/s at batch 16 and 64; where
           one batch-16 call's device time goes, by kernel name and by
           layer (profiler)
   parity  two seeds rendered on the card and on the CPU agree within ±1
-  clis    generate_w → w_s_converter → generate_fromS as subprocesses
+  clis    generate_w → w_s_converter → find_direction → generate_fromS as
+          subprocesses, each consuming the one before
 
-Each path that renders (the HTTP requests, the throughput calls, the
-parity render on the card, each CLI) is driven with the kernel's launch
-count set to 0 just before it and read just after; each must show the
-kernel launched 6 times per synthesis call.
+Each path that renders or trains (the HTTP requests, the throughput calls,
+the parity render on the card, the precompute, the training steps, each
+CLI) is driven with both kernels' launch counts set to 0 just before it
+and read just after; each must show B1 launched 6 times per synthesis call
+and B2 6 times per backward pass.
 
 Then the card's nvidia-smi line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -56,6 +76,19 @@ FP32_FLOP_PER_S = 67e12
 KERNEL_TOL = 1e-5
 CHAIN_SHAPES = [(16, 3, h, h) for h in (4, 8, 16, 32, 64, 128)]
 EXTRA_SHAPES = [(1, 3, 512, 512), (2, 5, 6, 10)]
+# B2's inputs in one training step's backward (batch 4): the cotangent of
+# each upsample of the ToRGB chain
+TRAIN_DOWN_SHAPES = [(4, 3, 2 * h, 2 * h) for h in (4, 8, 16, 32, 64, 128)]
+DOWN_SHAPES = TRAIN_DOWN_SHAPES + [(1, 3, 1024, 1024), (2, 5, 6, 10)]
+GRAD_SHAPES = [(4, 3, 16, 16), (4, 3, 128, 128)]
+GRAD_TOL = 1e-5
+TRAIN_SEEDS = 129
+PARITY_LOSS_RTOL = 1e-4
+PARITY_GRAD_REL_L2 = 1e-3
+# random-weight seeds of the perception models (utils/model_zoo.py's, so
+# find_direction's --allow_random_init builds the same networks)
+CLIP_SEEDS = {"ViT-B/32": 0, "ViT-B/16": 1}
+ARCFACE_SEED = 42
 
 
 def emit(obj) -> None:
@@ -79,6 +112,18 @@ def upsample_bound(shape):
     elems = n * c * h * w
     t_bytes = 20 * elems / HBM_BYTES_PER_S
     t_ops = 18 * elems / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def downsample_bound(shape):
+    """(ms, 'bytes' | 'operations'): the least time an H100 takes for the
+    2x downsample of an input of `shape` — each input read once (4 B/elem),
+    each output written once (1 B per input elem), 24 flops per output
+    (6 per input element) in the separable form."""
+    n, c, h, w = shape
+    elems = n * c * h * w
+    t_bytes = 5 * elems / HBM_BYTES_PER_S
+    t_ops = 6 * elems / FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -117,6 +162,15 @@ def library_upsample(x, weight):
 
     return F.conv_transpose2d(x, weight, stride=2, padding=1,
                               groups=x.shape[1])
+
+
+def library_downsample(x, weight):
+    """One PyTorch call computing the 2x downsample: a depthwise strided
+    convolution; `weight` is `library_weight` of the reversed taps. A
+    yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+
+    return F.conv2d(x, weight, stride=2, padding=1, groups=x.shape[1])
 
 
 def event_ms(fn, iters=50, warmup=5) -> float:
@@ -183,55 +237,139 @@ def phase_env(torch):
     return smi
 
 
+KERNEL_NAMES = ("upsample2x", "downsample2x")
+
+
 def phase_build():
+    """Build both kernel libraries, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from stylemc_torch.ops.kernels import upfirdn2d as kup
     from stylemc_torch.ops.kernels.build import library_dir
 
+    def build(name):
+        t0 = time.perf_counter()
+        kup._library(name)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    kup._library()
-    seconds = time.perf_counter() - t0
-    log = (library_dir([kup.SOURCE]) / "build.log").read_text()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
+    with ThreadPoolExecutor(len(KERNEL_NAMES)) as pool:
+        seconds = dict(zip(KERNEL_NAMES, pool.map(build, KERNEL_NAMES)))
+    ptxas = {}
+    for name in KERNEL_NAMES:
+        log = (library_dir([kup.SOURCES[name]]) / "build.log").read_text()
+        ptxas[name] = [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "seconds_by_kernel": seconds, "ptxas": ptxas})
 
 
-def phase_kernel(torch):
+def _kernel_rows(torch, name, shapes, kernel, launch, plain, taps, bound,
+                 library, weight_taps):
+    """Hold one kernel against its plain version at `shapes` and time the
+    kernel, the plain version and the library call (device time), and the
+    wrapper (host cost included)."""
     from stylemc_torch.ops import setup_filter_np
-    from stylemc_torch.ops.kernels.upfirdn2d import (
-        _canonical_taps, _launch, upsample2d_kernel, upsample2d_plain)
 
     f = setup_filter_np([1, 3, 3, 1])
-    taps = _canonical_taps(f, 4.0, False)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for shape in CHAIN_SHAPES + EXTRA_SHAPES:
+    for shape in shapes:
         x = torch.randn(shape, generator=gen, device="cuda")
-        weight = library_weight(taps, shape[1], "cuda")
-        got = upsample2d_kernel(x, f)
-        want = upsample2d_plain(x, taps)
-        lib = library_upsample(x, weight)
+        weight = library_weight(weight_taps, shape[1], "cuda")
+        got = kernel(x, f)
+        want = plain(x, taps)
+        lib = library(x, weight)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         lib_err = float((lib - want).abs().max())
-        bound_ms, bound_by = upsample_bound(shape)
-        fns = {"kernel": lambda: _launch(x, taps),
-               "plain": lambda: upsample2d_plain(x, taps),
-               "library": lambda: library_upsample(x, weight)}
+        bound_ms, bound_by = bound(shape)
+        fns = {"kernel": lambda: launch(x, taps),
+               "plain": lambda: plain(x, taps),
+               "library": lambda: library(x, weight)}
         row = {"shape": list(shape), "max_abs_err": err,
                "library_max_abs_err": lib_err,
                "bound_ms": bound_ms, "bound_by": bound_by}
         for key, fn in fns.items():
             row[f"{key}_ms"] = device_ms(fn)
-        row["wrapper_event_ms"] = event_ms(lambda: upsample2d_kernel(x, f))
-        emit({"phase": "kernel", **row})
+        row["wrapper_event_ms"] = event_ms(lambda: kernel(x, f))
+        emit({"phase": "kernel", "kernel": name, **row})
         if not err <= KERNEL_TOL:
-            raise AssertionError(f"upsample2x disagrees with its plain "
-                                 f"version at {shape}: {err} > {KERNEL_TOL}")
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {shape}: {err} > {KERNEL_TOL}")
         if not lib_err <= KERNEL_TOL:
-            raise AssertionError(f"library yardstick computes another "
-                                 f"function at {shape}: {lib_err}")
+            raise AssertionError(f"{name}'s library yardstick computes "
+                                 f"another function at {shape}: {lib_err}")
         rows.append(row)
+    return rows
+
+
+def phase_kernel(torch):
+    from stylemc_torch.ops import setup_filter_np
+    from stylemc_torch.ops.kernels.upfirdn2d import (
+        _canonical_taps, downsample2d_kernel, downsample2d_plain,
+        launch_downsample, launch_upsample, upsample2d_kernel,
+        upsample2d_plain)
+
+    f = setup_filter_np([1, 3, 3, 1])
+    up_taps = _canonical_taps(f, 4.0, False)
+    down_taps = _canonical_taps(f, 1.0, False)
+    return {
+        "upsample2x": _kernel_rows(
+            torch, "upsample2x", CHAIN_SHAPES + EXTRA_SHAPES,
+            upsample2d_kernel, launch_upsample, upsample2d_plain, up_taps,
+            upsample_bound, library_upsample, up_taps),
+        "downsample2x": _kernel_rows(
+            torch, "downsample2x", DOWN_SHAPES, downsample2d_kernel,
+            launch_downsample, downsample2d_plain, down_taps,
+            downsample_bound, library_downsample, down_taps[::-1]),
+    }
+
+
+def phase_grad(torch):
+    """First- and second-order gradients through both kernels on the card
+    against the same computation through the plain versions (plain torch
+    ops, differentiated by autograd)."""
+    from stylemc_torch.ops import setup_filter_np
+    from stylemc_torch.ops.kernels.upfirdn2d import (
+        _canonical_taps, downsample2d_kernel, downsample2d_plain,
+        upsample2d_kernel, upsample2d_plain)
+
+    f = setup_filter_np([1, 3, 3, 1])
+    ops = {"upsample2x": (lambda x: upsample2d_kernel(x, f),
+                          lambda x: upsample2d_plain(
+                              x, _canonical_taps(f, 4.0, False))),
+           "downsample2x": (lambda x: downsample2d_kernel(x, f),
+                            lambda x: downsample2d_plain(
+                                x, _canonical_taps(f, 1.0, False)))}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def grads(fn, x0):
+        x = x0.clone().requires_grad_(True)
+        g, = torch.autograd.grad(torch.sum(fn(x) ** 2), x, create_graph=True)
+        h, = torch.autograd.grad(torch.sum(g ** 2), x)
+        return g.detach(), h
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    rows = []
+    for name, (kernel, plain) in ops.items():
+        for shape in GRAD_SHAPES:
+            x = torch.randn(shape, generator=gen, device="cuda")
+            (g_k, h_k), counts = count_launches(lambda: grads(kernel, x))
+            g_p, h_p = grads(plain, x)
+            row = {"op": name, "shape": list(shape),
+                   "first_order_rel_l2": rel(g_k, g_p),
+                   "second_order_rel_l2": rel(h_k, h_p), "launches": counts}
+            emit({"phase": "grad", **row})
+            # forward, backward, and the double backward through both
+            if counts != {"upsample2x": 2, "downsample2x": 2}:
+                raise AssertionError(f"grad {name} {shape}: launches {counts}")
+            if not max(row["first_order_rel_l2"],
+                       row["second_order_rel_l2"]) <= GRAD_TOL:
+                raise AssertionError(f"grad {name} {shape}: {row}")
+            rows.append(row)
     return rows
 
 
@@ -271,24 +409,33 @@ def make_network(torch, tmp):
 
 
 def count_launches(fn):
-    """(fn(), upsample2x launches during it), the count set to 0 just
+    """(fn(), {kernel: launches during it}), both counts set to 0 just
     before the call."""
-    from stylemc_torch.ops.kernels.upfirdn2d import upsample2d_kernel
+    from stylemc_torch.ops.kernels.upfirdn2d import (
+        downsample2d_kernel, upsample2d_kernel)
 
-    upsample2d_kernel.launches = 0
+    counters = {"upsample2x": upsample2d_kernel,
+                "downsample2x": downsample2d_kernel}
+    for c in counters.values():
+        c.launches = 0
     out = fn()
-    return out, upsample2d_kernel.launches
+    return out, {name: c.launches for name, c in counters.items()}
 
 
-def record_launches(paths, cfg, path, launches, synthesis_calls) -> None:
-    """Keep a path's launch count and hold it to one launch per upper
-    block of each synthesis call."""
+def record_launches(paths, cfg, path, launches, synthesis_calls,
+                    backward_calls=0) -> None:
+    """Keep a path's launch counts and hold them to one B1 launch per upper
+    block of each synthesis call and one B2 launch per upper block of each
+    backward pass through it."""
     per_call = len(cfg.block_resolutions) - 1
-    paths[path] = {"launches": launches, "synthesis_calls": synthesis_calls}
-    if launches != per_call * synthesis_calls:
+    paths[path] = {"launches": launches, "synthesis_calls": synthesis_calls,
+                   "backward_calls": backward_calls}
+    want = {"upsample2x": per_call * synthesis_calls,
+            "downsample2x": per_call * backward_calls}
+    if launches != want:
         raise AssertionError(
-            f"{path}: upsample2x launched {launches} times over "
-            f"{synthesis_calls} synthesis calls, not {per_call} per call")
+            f"{path}: launches {launches} over {synthesis_calls} synthesis "
+            f"calls and {backward_calls} backward passes, not {want}")
 
 
 def phase_serve(torch, net, direction, smi, paths):
@@ -450,8 +597,8 @@ def device_breakdown(torch, fn, top=10):
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {"wall_ms": wall_ms, "span_ms": span_ms, "device_busy_ms": busy_ms,
             "idle_share": 1 - busy_ms / wall_ms,
-            "upsample2x_ms": sum(ms for name, (ms, _) in rows
-                                 if "upsample2x" in name),
+            **{f"{k}_ms": sum(ms for name, (ms, _) in rows if k in name)
+               for k in KERNEL_NAMES},
             "top": [{"name": name[:100], "ms": ms, "calls": calls,
                      "share": ms / busy_ms}
                     for name, (ms, calls) in rows[:top]]}
@@ -468,13 +615,17 @@ def _kernels(evt):
 def conv_layer(x_shape, w_shape):
     """(layer, output resolution) of a synthesis convolution from its
     input and weight shapes: a 6x6 weight is a conv0 (3x3 composed with
-    the 4x4 FIR, run over the zero-stuffed input), 3x3 a conv1, 1x1 a
-    torgb; a 4x4 FIR over [O*I, 1, 3, 3] weight planes composes a conv0's
-    kernel."""
+    the 4x4 FIR, run over the zero-stuffed input: pad_dilate), a 3x3
+    weight with more output than input channels a polyphase conv0 (its
+    four 3x3 phases as 4·O output channels over the low-resolution input),
+    another 3x3 a conv1, 1x1 a torgb; a 4x4 FIR over [O*I, 1, 3, 3] weight
+    planes composes a conv0's kernel."""
     kh = w_shape[2]
     res = x_shape[2] - kh + 1
-    if x_shape[1] == 1 and w_shape[:2] == [1, 1]:
+    if x_shape[1] == 1 and w_shape[:3] == [1, 1, 4]:
         return "conv0_kernel_compose", None
+    if kh == 3 and w_shape[0] > w_shape[1]:
+        return "conv0_polyphase", 2 * res
     return {6: "conv0", 3: "conv1", 1: "torgb"}.get(kh, f"conv{kh}x{kh}"), res
 
 
@@ -488,10 +639,19 @@ def layer_breakdown(torch, fn, batch):
     prof, wall_ms, span_ms, busy_ms = profiled(torch, fn, record_shapes=True)
     rows = {}
     for evt in prof.events():
-        if evt.name != "aten::convolution" or not evt.input_shapes:
+        if evt.name == "aten::convolution" and evt.input_shapes:
+            x_shape, w_shape = evt.input_shapes[0], evt.input_shapes[1]
+            suffix = ""
+        elif evt.name == "aten::convolution_backward" and evt.input_shapes:
+            # (grad_output, input, weight, ...); with the weights frozen it
+            # computes the input gradient only: the forward's flops
+            x_shape, w_shape = evt.input_shapes[1], evt.input_shapes[2]
+            suffix = "_bwd"
+        else:
             continue
-        x_shape, w_shape = list(evt.input_shapes[0]), list(evt.input_shapes[1])
+        x_shape, w_shape = list(x_shape), list(w_shape)
         layer, res = conv_layer(x_shape, w_shape)
+        layer += suffix
         kernels = _kernels(evt)
         row = rows.setdefault((layer, res), {
             "layer": layer, "res": res, "x": x_shape, "w": w_shape,
@@ -500,7 +660,8 @@ def layer_breakdown(torch, fn, batch):
         row["device_ms"] += sum(k.duration for k in kernels) / 1e3
         if res is not None:
             o, i, kh, kw = w_shape
-            row["flop"] += 2 * x_shape[0] * o * i * kh * kw * res * res
+            out = x_shape[2] - kh + 1
+            row["flop"] += 2 * x_shape[0] * o * i * kh * kw * out * out
         for k in kernels:
             row["kernels"][k.name[:80]] = row["kernels"].get(k.name[:80], 0) + 1
     by_layer = {}
@@ -542,31 +703,36 @@ def phase_parity(editor, net, direction, paths):
           "cpu_launches": cpu_launches})
     if diff > 1:
         raise AssertionError(f"cuda vs cpu uint8 renders differ by {diff}")
-    if cpu_launches != 0:
-        raise AssertionError("the CPU render launched the CUDA kernel")
+    if any(cpu_launches.values()):
+        raise AssertionError("the CPU render launched a CUDA kernel")
     record_launches(paths, editor.cfg, "parity", launches, 2)
 
 
-# Runs a CLI module as `python -m` does, then prints the kernel's launch
-# count in that process as its last line.
+# Runs a CLI module as `python -m` does, then prints both kernels' launch
+# counts in that process as its last line.
 CLI_RUNNER = """\
 import json, runpy, sys
-from stylemc_torch.ops.kernels.upfirdn2d import upsample2d_kernel
+from stylemc_torch.ops.kernels.upfirdn2d import (
+    downsample2d_kernel, upsample2d_kernel)
 sys.argv = sys.argv[1:]
-upsample2d_kernel.launches = 0
+upsample2d_kernel.launches = downsample2d_kernel.launches = 0
 try:
     runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 except SystemExit as e:
     if e.code not in (None, 0):
         raise
-print(json.dumps({"launches": upsample2d_kernel.launches}))
+print(json.dumps({"upsample2x": upsample2d_kernel.launches,
+                  "downsample2x": downsample2d_kernel.launches}))
 """
 
 
 def phase_clis(editor, net, direction, tmp, paths):
     import numpy as np
 
-    def run(name, synthesis_calls, *args):
+    from stylemc_torch.models.stylegan2.generator import (
+        S_TRAINABLE_SPACE_CHANNELS)
+
+    def run(name, synthesis_calls, backward_calls, *args):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-c", CLI_RUNNER,
                                f"stylemc_torch.cli.{name}", *args], cwd=ROOT,
@@ -574,27 +740,36 @@ def phase_clis(editor, net, direction, tmp, paths):
         if proc.returncode != 0:
             raise RuntimeError(f"{name} exited {proc.returncode}:\n"
                                f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
-        launches = json.loads(proc.stdout.strip().splitlines()[-1])["launches"]
+        launches = json.loads(proc.stdout.strip().splitlines()[-1])
         record_launches(paths, editor.cfg, f"cli_{name}", launches,
-                        synthesis_calls)
-        return time.perf_counter() - t0
+                        synthesis_calls, backward_calls)
+        return time.perf_counter() - t0, proc.stdout
 
     w_file = os.path.join(tmp, "projected_w.npz")
     s_file = os.path.join(tmp, "input.npz")
     outdir = os.path.join(tmp, "out")
     os.makedirs(outdir)
     prompt = "smiling face"
-    np.savez(os.path.join(outdir, "direction_smiling_face.npz"),
-             s=np.load(direction)["s"])
-    # generate_w and w_s_converter render nothing; generate_fromS renders
-    # its 8 items in one batch, original and edit: two synthesis calls
-    secs = [run("generate_w", 0, "--network", net, "--seeds", "1-8",
-                "--trunc", "0.7", "--out_file", w_file),
-            run("w_s_converter", 0, "--network", net, "--projected-w", w_file,
-                "--out_file", s_file),
-            run("generate_fromS", 2, "--network", net, "--s_input", s_file,
-                "--outdir", outdir, "--text_prompt", prompt)]
+    # generate_w and w_s_converter render nothing. find_direction renders
+    # the 8 items once (one precompute chunk), then takes 2 steps of batch
+    # 4, each a synthesis and a backward pass; it starts from the seeded
+    # direction, so the edit it writes is visible. generate_fromS renders
+    # its 8 items in one batch, original and edit: two synthesis calls.
+    secs, outs = zip(*[
+        run("generate_w", 0, 0, "--network", net, "--seeds", "1-8",
+            "--trunc", "0.7", "--out_file", w_file),
+        run("w_s_converter", 0, 0, "--network", net, "--projected-w", w_file,
+            "--out_file", s_file),
+        run("find_direction", 3, 2, "--network", net, "--s_input", s_file,
+            "--outdir", outdir, "--text_prompt", prompt,
+            "--allow_random_init", "--n_epochs", "1", "--batch_size", "4",
+            "--resume", direction),
+        run("generate_fromS", 2, 0, "--network", net, "--s_input", s_file,
+            "--outdir", outdir, "--text_prompt", prompt)])
     w, s = np.load(w_file)["w"], np.load(s_file)["s"]
+    found = np.load(os.path.join(outdir, "direction_smiling_face.npz"))["s"]
+    frozen = [i for i in range(found.shape[1])
+              if i not in S_TRAINABLE_SPACE_CHANNELS]
     ref = editor.styles_from_seeds(list(range(1, 9))).cpu().numpy()
     jpegs = sorted(f for f in os.listdir(outdir) if f.endswith(".jpeg"))
     imgs = []
@@ -606,6 +781,12 @@ def phase_clis(editor, net, direction, tmp, paths):
         "w_shape": w.shape == (8, 14, 512),
         "s_shape": s.shape == (8, 26, 512),
         "s_matches_editor": bool(np.allclose(s, ref, rtol=1e-4, atol=1e-4)),
+        "direction_shape": found.shape == (1, 26, 512),
+        "direction_finite": bool(np.isfinite(found).all()),
+        "direction_moved": bool(np.abs(found - np.load(direction)["s"]).max()
+                                > 0),
+        "frozen_rows_zero": bool(np.abs(found[:, frozen]).max() == 0),
+        "iteration_logged": "Iteration 2, gradient norm:" in outs[2],
         "jpeg_names": jpegs == [f"smiling_face_{i:03d}.jpeg"
                                 for i in range(8)],
         "jpeg_shapes": all(a.shape == (res, 2 * res, 3) for a in imgs),
@@ -613,12 +794,299 @@ def phase_clis(editor, net, direction, tmp, paths):
                                     - a[:, res:].astype(int)).max() > 0
                              for a in imgs),
     }
-    emit({"phase": "clis", "seconds": secs,
+    emit({"phase": "clis", "seconds": list(secs),
           "launches": {k: v["launches"] for k, v in paths.items()
                        if k.startswith("cli_")},
+          "find_direction_tail": outs[2].strip().splitlines()[-4:],
           "max_abs_s_diff": float(np.abs(s - ref).max()), "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"CLI checks failed: {checks}")
+
+
+def perception_models(torch):
+    """CLIP ViT-B/32 and ViT-B/16 and ArcFace IR-SE-50 at full width, with
+    random weights drawn on the CPU from the seeds `utils/model_zoo.py`
+    uses, so every device gets the same networks."""
+    from stylemc_torch.models.arcface import init_backbone_params
+    from stylemc_torch.models.clip import CLIP_CONFIGS, init_clip_params
+
+    clip = {name: (CLIP_CONFIGS[name], init_clip_params(
+        torch.Generator().manual_seed(seed), CLIP_CONFIGS[name],
+        device="cpu")) for name, seed in CLIP_SEEDS.items()}
+    arcface = init_backbone_params(torch.Generator().manual_seed(ARCFACE_SEED),
+                                   device="cpu")
+    return clip, arcface
+
+
+def models_on(clip, arcface, device):
+    from stylemc_torch.convert import params_from_numpy
+
+    return ({name: (cfg, params_from_numpy(p, device))
+             for name, (cfg, p) in clip.items()},
+            params_from_numpy(arcface, device))
+
+
+def train_flop(cfg, batch):
+    """Flops of one training step's forward and backward (input gradients
+    only: every weight is frozen, so each layer's backward costs its
+    forward): the generator in the polyphase form (the useful count), the
+    two CLIP image towers and IR-SE-50 at 112 px, from their shapes."""
+    gen = synthesis_flop(cfg, useful=True)
+
+    def vit(width, layers, patch, res=224, embed=512):
+        tokens = (res // patch) ** 2 + 1
+        per_layer = 2 * tokens * (12 * width * width) \
+            + 2 * 2 * tokens * tokens * width
+        return layers * per_layer + 2 * (tokens - 1) * 3 * patch * patch \
+            * width + 2 * width * embed
+
+    def irse50():
+        from stylemc_torch.models.arcface import ir_se_50_layout
+
+        total, s = 2 * 9 * 3 * 64 * 112 * 112, 112
+        for in_c, depth, stride in ir_se_50_layout():
+            out = s // stride
+            total += 2 * 9 * in_c * depth * s * s           # conv1
+            total += 2 * 9 * depth * depth * out * out      # conv2
+            if in_c != depth:
+                total += 2 * in_c * depth * out * out       # shortcut
+            s = out
+        return total + 2 * 512 * 7 * 7 * 512
+
+    per_image = gen + vit(768, 12, 32) + vit(768, 12, 16) + irse50()
+    return 2 * batch * per_image, {
+        "generator": 2 * batch * gen, "clip_b32": 2 * batch * vit(768, 12, 32),
+        "clip_b16": 2 * batch * vit(768, 12, 16), "arcface": 2 * batch * irse50()}
+
+
+def phase_train(torch, net, smi, paths):
+    import numpy as np
+
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.serve import BatchEditor
+    from stylemc_torch.losses.id_loss import extract_feats
+    from stylemc_torch.models.clip import (FallbackTokenizer, encode_image,
+                                           unprocess)
+    from stylemc_torch.models.stylegan2.generator import synthesis
+    from stylemc_torch.train.find_direction import (
+        TRAINABLE, FindDirectionConfig, assemble_direction, find_direction,
+        make_clip_bundles, make_loss_fn, precompute_original_features)
+
+    cfg, gp = load_generator(net, device="cuda")   # polyphase up-convs
+    clip_cpu, arc_cpu = perception_models(torch)
+    clip, arc = models_on(clip_cpu, arc_cpu, "cuda")
+    # the seeds' styles as the serving editor makes them
+    editor = BatchEditor.from_files(net, max_batch=64, device="cuda")
+    styles = editor.styles_from_seeds(list(range(TRAIN_SEEDS)))
+    fdc = FindDirectionConfig(n_epochs=1)
+    tok = FallbackTokenizer()
+    bundles = make_clip_bundles(fdc, clip, tok)
+
+    def precompute():
+        out = precompute_original_features(gp, cfg, styles, bundles, arc, fdc)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    (id_all, clip_all), pre = count_launches(precompute)
+    precompute_s = time.perf_counter() - t0
+    chunks = -(-TRAIN_SEEDS // 8)
+    record_launches(paths, cfg, "train_precompute", pre, chunks)
+
+    torch.cuda.reset_peak_memory_stats()
+    (direction, info), total = count_launches(
+        lambda: find_direction(gp, cfg, styles, clip, arc, fdc,
+                               tokenizer=tok))
+    peak = torch.cuda.max_memory_allocated()
+    steps = info["iterations"]
+    record_launches(paths, cfg, "train", total, chunks + steps, steps)
+    step_launches = {k: total[k] - pre[k] for k in total}
+
+    d = direction.cpu().numpy()
+    frozen = [i for i in range(d.shape[1]) if i not in TRAINABLE]
+    hist = np.asarray(info["history"])
+    steady = info["steady_ms_per_step"]
+    flop, flop_by_model = train_flop(cfg, fdc.batch_size)
+    checks = {"steps": steps == -(-TRAIN_SEEDS // fdc.batch_size),
+              "history_finite": bool(np.isfinite(hist).all()),
+              "history_len": len(hist) == steps,
+              "trainable_rows_moved": bool((np.abs(d[0, TRAINABLE]).max(1)
+                                            > 0).all()),
+              "frozen_rows_zero": bool(np.abs(d[:, frozen]).max() == 0),
+              "step_launches": step_launches == {"upsample2x": 6 * steps,
+                                                 "downsample2x": 6 * steps}}
+    emit({"phase": "train", "card": smi, "seeds": TRAIN_SEEDS,
+          "batch": fdc.batch_size, "clip_type": fdc.clip_type,
+          "clip_loss_type": fdc.clip_loss_type, "precision": "fp32",
+          "up_conv_impl": cfg.up_conv_impl or "polyphase",
+          "precompute_s": precompute_s,
+          "first_step_s": info["first_step_time"],
+          "steady_ms_per_step": steady, "steps_per_s": 1e3 / steady,
+          "images_per_s": fdc.batch_size * 1e3 / steady,
+          "time_s": info["time"], "peak_mem_bytes": peak,
+          "step_flop": flop, "step_flop_by_model": flop_by_model,
+          "achieved_tflop_per_s": flop / steady / 1e9,
+          "loss_first_last": [hist[0], hist[-1]],
+          "launches": {"precompute": pre, "steps": step_launches},
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"train checks failed: {checks}")
+
+    # one step, profiled, and each model's forward + backward alone
+    loss_fn = make_loss_fn(gp, cfg, bundles, arc, fdc)
+    s4, id4 = styles[:4], id_all[:4]
+    c4 = tuple(c[:4] for c in clip_all)
+    delta0 = direction[:, TRAINABLE].clone()
+
+    def one_step():
+        dl = delta0.clone().requires_grad_(True)
+        loss, _ = loss_fn(dl, s4, id4, c4)
+        g, = torch.autograd.grad(loss, dl)
+        return dl.detach() - fdc.learning_rate * g
+
+    emit({"phase": "train_breakdown", "card": smi,
+          **device_breakdown(torch, one_step, top=15)})
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():
+        img4 = synthesis(gp, cfg, s4 + assemble_direction(delta0), until_k=6)
+    cot_img = torch.randn(img4.shape, generator=gen, device="cuda")
+
+    def gen_fb():
+        dl = delta0.clone().requires_grad_(True)
+        img = synthesis(gp, cfg, s4 + assemble_direction(dl), until_k=6)
+        return torch.autograd.grad(img, dl, cot_img)
+
+    def image_fb(feats):
+        with torch.no_grad():
+            cot = torch.randn(feats(img4).shape, generator=gen, device="cuda")
+
+        def fb():
+            x = img4.clone().requires_grad_(True)
+            return torch.autograd.grad(feats(x), x, cot)
+        return fb
+
+    fns = {"generator": gen_fb}
+    for b, key in zip(bundles, ("clip_b32", "clip_b16")):
+        fns[key] = image_fb(lambda x, b=b: encode_image(
+            b.params, b.cfg, unprocess(x, b.cfg.image_resolution)))
+    fns["arcface"] = image_fb(
+        lambda x: extract_feats(arc, x, fdc.arcface_layout))
+    models = {}
+    for key, fn in fns.items():
+        ms = event_ms(fn, iters=10, warmup=2)
+        models[key] = {"event_ms": ms, "flop": flop_by_model[key],
+                       "tflop_per_s": flop_by_model[key] / ms / 1e9}
+    emit({"phase": "train_models", "card": smi, "batch": 4,
+          "times_are": "CUDA events over 10 back-to-back forward+backward "
+                       "calls of each model alone (host cost included)",
+          "models": models,
+          "sum_ms": sum(m["event_ms"] for m in models.values()),
+          "steady_ms_per_step": steady})
+    emit({"phase": "train_layers", "card": smi,
+          **layer_breakdown(torch, gen_fb, batch=4)})
+    return editor, (cfg, gp, clip_cpu, arc_cpu, clip, arc)
+
+
+def phase_train_parity(torch, net, editor, direction_file, models, paths):
+    """One full-width step (batch 2, seeds 1-2) from the seeded direction,
+    on the card and on the CPU: the losses and the Δs gradients agree.
+    Where they part is read off two pieces of the step, each alone: the
+    generator's backward (Δs gradient of sum(img · a fixed cotangent)) and
+    each loss term's gradient with respect to a fixed image."""
+    import numpy as np
+
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.losses.id_loss import extract_feats
+    from stylemc_torch.models.clip import FallbackTokenizer
+    from stylemc_torch.models.stylegan2.generator import synthesis
+    from stylemc_torch.train.find_direction import (
+        TRAINABLE, FindDirectionConfig, _clip_term_from_img, _id_features,
+        assemble_direction, make_clip_bundles, make_loss_fn,
+        precompute_original_features)
+
+    cfg, gp, clip_cpu, arc_cpu, clip, arc = models
+    _, gp_cpu = load_generator(net, device="cpu")
+    resume = np.load(direction_file)["s"].astype(np.float32)
+    styles = editor.styles_from_seeds([1, 2])
+    fdc = FindDirectionConfig(batch_size=2, n_epochs=1)
+    tok = FallbackTokenizer()
+    gen = torch.Generator().manual_seed(3)
+    res = cfg.img_resolution
+    cot = torch.randn((2, 3, res, res), generator=gen)
+    img_fixed = torch.rand((2, 3, res, res), generator=gen) * 2 - 1
+
+    def step(gparams, clip_models, arcface, s, device):
+        bundles = make_clip_bundles(fdc, clip_models, tok)
+        id_f, clip_f = precompute_original_features(
+            gparams, cfg, s, bundles, arcface, fdc, chunk=2)
+        dl = torch.from_numpy(resume[:, TRAINABLE]).to(device)
+        dl.requires_grad_(True)
+        loss, aux = make_loss_fn(gparams, cfg, bundles, arcface, fdc)(
+            dl, s, id_f, clip_f)
+        g, = torch.autograd.grad(loss, dl)
+        img = synthesis(gparams, cfg, s + assemble_direction(dl),
+                        until_k=6, noise_mode=fdc.noise_mode)
+        g_gen, = torch.autograd.grad(img, dl, cot.to(device))
+        x = img_fixed.to(device).requires_grad_(True)
+        terms = {"identity": fdc.identity_loss_coef * torch.mean(
+            1.0 - torch.sum(_id_features(arcface, x, fdc) * id_f, dim=1))}
+        for b, cf, name in zip(bundles, clip_f, ("clip_b32", "clip_b16")):
+            terms[name] = fdc.clip_loss_coef * b.weight * _clip_term_from_img(
+                b, fdc.clip_loss_type, x, cf)
+        g_img = {k: torch.autograd.grad(v, x)[0].cpu()
+                 for k, v in terms.items()}
+        return (float(loss.detach()),
+                {k: float(v.detach()) for k, v in aux.items()},
+                g.cpu(), g_gen.cpu(), g_img, id_f)
+
+    def identity_grad_fp64(id_f):
+        """The identity term's image gradient with ArcFace in float64 on
+        the card: the reference both fp32 results are held against."""
+        def f64(tree):
+            return {k: f64(v) if isinstance(v, dict) else v.double()
+                    for k, v in tree.items()}
+
+        x = img_fixed.double().cuda().requires_grad_(True)
+        feats = extract_feats(f64(arc), x, fdc.arcface_layout)
+        term = fdc.identity_loss_coef * torch.mean(
+            1.0 - torch.sum(feats * id_f.double(), dim=1))
+        return torch.autograd.grad(term, x)[0].cpu().float()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    (loss, aux, g, g_gen, g_img, id_f), launches = count_launches(
+        lambda: step(gp, clip, arc, styles, "cuda"))
+    # precompute, the loss and the generator-alone piece: three synthesis
+    # calls, two of them differentiated
+    record_launches(paths, cfg, "train_parity", launches, 3, 2)
+    t0 = time.perf_counter()
+    (loss_c, aux_c, g_c, g_gen_c, g_img_c, _), cpu_launches = count_launches(
+        lambda: step(gp_cpu, clip_cpu, arc_cpu, styles.cpu(), "cpu"))
+    cpu_s = time.perf_counter() - t0
+    id64 = identity_grad_fp64(id_f)
+    loss_rel = abs(loss - loss_c) / abs(loss_c)
+    grad_rel = rel(g, g_c)
+    emit({"phase": "train_parity", "loss": loss, "cpu_loss": loss_c,
+          "loss_rel": loss_rel, "aux": aux, "cpu_aux": aux_c,
+          "aux_rel": {k: abs(aux[k] - aux_c[k]) / max(abs(aux_c[k]), 1e-30)
+                      for k in aux},
+          "grad_rel_l2": grad_rel, "grad_norm": float(g_c.norm()),
+          "generator_grad_rel_l2": rel(g_gen, g_gen_c),
+          "generator_grad_rel_l2_by_row": {
+              row: rel(g_gen[0, i], g_gen_c[0, i])
+              for i, row in enumerate(TRAINABLE)},
+          "image_grad_rel_l2": {k: rel(g_img[k], g_img_c[k]) for k in g_img},
+          "identity_image_grad_rel_l2_to_fp64": {
+              "card_fp32": rel(g_img["identity"], id64),
+              "cpu_fp32": rel(g_img_c["identity"], id64)},
+          "cpu_s": cpu_s, "launches": launches, "cpu_launches": cpu_launches})
+    if any(cpu_launches.values()):
+        raise AssertionError("the CPU step launched a CUDA kernel")
+    if not (loss_rel <= PARITY_LOSS_RTOL and grad_rel <= PARITY_GRAD_REL_L2):
+        raise AssertionError(f"card vs CPU step: loss rel {loss_rel}, "
+                             f"gradient rel L2 {grad_rel}")
 
 
 def main() -> int:
@@ -635,39 +1103,58 @@ def main() -> int:
     smi = phase_env(torch)
     phase_build()
     kernel_rows = phase_kernel(torch)
-    paths = {}  # path → its launches and synthesis calls
+    phase_grad(torch)
+    paths = {}  # path → its launches, synthesis calls and backward passes
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         _, net, direction = make_network(torch, tmp)
+        # training first: its timed run comes before any profiler trace
+        editor, models = phase_train(torch, net, smi, paths)
+        phase_train_parity(torch, net, editor, direction, models, paths)
+        del editor, models
         editor = phase_serve(torch, net, direction, smi, paths)
         phase_parity(editor, net, direction, paths)
         phase_clis(editor, net, direction, tmp, paths)
 
-    chain = [r for r in kernel_rows if tuple(r["shape"]) in CHAIN_SHAPES]
+    timed = {"upsample2x": CHAIN_SHAPES, "downsample2x": TRAIN_DOWN_SHAPES}
+    sources = {"upsample2x": ("upfirdn2d_pallas.py:132", "_upsample2x_core"),
+               "downsample2x": ("upfirdn2d_pallas.py:229",
+                                "_downsample2x_core")}
+    times_are = {
+        "upsample2x": "sum over the six ToRGB chain shapes at batch 16 (one "
+                      "batch-16 FFHQ-256 synthesis call)",
+        "downsample2x": "sum over the six backward shapes [4,3,2h,2h] of "
+                        "one batch-4 training step"}
+    kernels = []
+    for name in KERNEL_NAMES:
+        rows = kernel_rows[name]
+        main_rows = [r for r in rows if tuple(r["shape"]) in timed[name]]
 
-    def chain_sum(key):
-        return sum(r[key] for r in chain)
+        def total(key):
+            return sum(r[key] for r in main_rows)
 
+        line, function = sources[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"stylemc_torch/ops/kernels/csrc/{name}.cu",
+            "replaces": f"stylemc_tpu/ops/pallas/{line}",
+            "replaces_function": function,
+            "launches": sum(p["launches"][name] for p in paths.values()),
+            "launches_by_path": {k: v["launches"][name]
+                                 for k, v in paths.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_us": total("bound_ms") * 1e3,
+            "bound_by": main_rows[0]["bound_by"],
+            "library_ms": total("library_ms"),
+            "wrapper_event_ms": total("wrapper_event_ms"),
+            "times_are": times_are[name] + "; *_ms device time (CUDA events "
+                         "around calls queued behind a sleep kernel); "
+                         "wrapper_event_ms CUDA events over back-to-back "
+                         "wrapper calls (host cost included)",
+            "card": smi})
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": "upsample2x", "route": "cuda",
-        "source": "stylemc_torch/ops/kernels/csrc/upsample2x.cu",
-        "replaces": "stylemc_tpu/ops/pallas/upfirdn2d_pallas.py:132",
-        "replaces_function": "_upsample2x_core",
-        "launches": sum(p["launches"] for p in paths.values()),
-        "launches_by_path": {k: v["launches"] for k, v in paths.items()},
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-        "ms": chain_sum("kernel_ms"), "kernel_ms": chain_sum("kernel_ms"),
-        "plain_ms": chain_sum("plain_ms"), "bound_ms": chain_sum("bound_ms"),
-        "bound_us": chain_sum("bound_ms") * 1e3,
-        "bound_by": chain[0]["bound_by"],
-        "library_ms": chain_sum("library_ms"),
-        "wrapper_event_ms": chain_sum("wrapper_event_ms"),
-        "times_are": "sum over the six ToRGB chain shapes at batch 16 "
-                     "(one batch-16 FFHQ-256 synthesis call); *_ms device "
-                     "time (CUDA events around calls queued behind a sleep "
-                     "kernel); wrapper_event_ms CUDA events over "
-                     "back-to-back wrapper calls (host cost included)",
-        "card": smi}]})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -18,7 +18,8 @@ Pure functions over a params dict with the same layout as the JAX package:
 
 `synthesis` consumes packed S-space styles [N, 26, 512] directly; `mapping`
 and `w_to_s` produce them. The ToRGB skip chain's 2x upsample goes through
-the hand-written CUDA kernel (`ops/kernels/upfirdn2d.py`).
+the hand-written CUDA kernels (`ops/kernels/upfirdn2d.py`): B1 forward and,
+under autograd, B2 backward.
 """
 
 from __future__ import annotations

@@ -1,13 +1,14 @@
-"""The 2x FIR upsample of the ToRGB skip chain as a CUDA kernel
-(counterpart of `stylemc_tpu/ops/pallas/upfirdn2d_pallas.py`, whose
-`upsample2d_pallas` the generator calls).
+"""The 2x FIR upsample (B1) and downsample (B2) as CUDA kernels
+(counterparts of `_upsample2x_core` and `_downsample2x_core` in
+`stylemc_tpu/ops/pallas/upfirdn2d_pallas.py`).
 
-`upsample2d_kernel` takes what `upsample2d` takes for the canonical case: a
-4-D contiguous float32 tensor and a separable 4-tap filter.
-For a CPU tensor it runs `upsample2d_plain`; for a CUDA tensor it launches
-`csrc/upsample2x.cu` or raises. Forward only: the backward (the 2x
-downsample kernel) is not ported yet, so a CUDA input that requires grad
-raises.
+`upsample2d_kernel` and `downsample2d_kernel` take what `upsample2d` and
+`downsample2d` take for the canonical case: a 4-D contiguous float32 tensor
+and a separable 4-tap filter. For a CPU tensor they run the plain versions
+(`upsample2d_plain`, `downsample2d_plain`); for a CUDA tensor they launch
+`csrc/upsample2x.cu` or `csrc/downsample2x.cu`, or raise. Each is a
+`torch.autograd.Function` whose backward is the other with reversed taps,
+as the JAX custom VJPs are, so a gradient on the card runs both kernels.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "upsample2x.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {name: _CSRC / f"{name}.cu" for name in ("upsample2x", "downsample2x")}
 
 Taps = Tuple[float, float, float, float]
 
@@ -81,59 +83,168 @@ def upsample2d_plain(x: torch.Tensor, taps: Taps) -> torch.Tensor:
     return torch.stack([even, odd], dim=-1).reshape(n, c, 2 * h, 2 * w)
 
 
+@functools.lru_cache(maxsize=16)
+def _downsample_taps(shape: Tuple[int, ...], data: bytes) -> Taps:
+    """`_canonical_taps` of the float64 filter `data` for the 2x
+    downsample (gain 1), computed once per filter."""
+    taps = _canonical_taps(np.frombuffer(data).reshape(shape), 1.0, False)
+    if taps is None:
+        raise ValueError("filter is not a separable 4-tap filter")
+    return taps
+
+
+def downsample2d_plain(x: torch.Tensor, taps: Taps) -> torch.Tensor:
+    """The kernel's arithmetic in torch ops: stride-2 rows, then columns,
+    zero boundary, out[m] = Σ_k taps[k]·x[2m + k - 1].
+    [N, C, 2H, 2W] → [N, C, H, W]."""
+    g0, g1, g2, g3 = taps
+    h, w = x.shape[2], x.shape[3]
+    xp = F.pad(x, (0, 0, 1, 1))
+    v = (g0 * xp[:, :, 0:h:2] + g1 * xp[:, :, 1:h + 1:2]
+         + g2 * xp[:, :, 2:h + 2:2] + g3 * xp[:, :, 3:h + 3:2])
+    vp = F.pad(v, (1, 1))
+    return (g0 * vp[..., 0:w:2] + g1 * vp[..., 1:w + 1:2]
+            + g2 * vp[..., 2:w + 2:2] + g3 * vp[..., 3:w + 3:2])
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library(name: str) -> ctypes.CDLL:
+    """The kernel library `name` (upsample2x or downsample2x), built from
+    `csrc/<name>.cu` at first use."""
     from .build import build_library
 
-    lib = ctypes.CDLL(str(build_library("upsample2x", [SOURCE])))
-    lib.stylemc_upsample2x.argtypes = [
+    lib = ctypes.CDLL(str(build_library(name, [SOURCES[name]])))
+    fn = getattr(lib, f"stylemc_{name}")
+    fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_float, ctypes.c_void_p]
-    lib.stylemc_upsample2x.restype = ctypes.c_int
+    fn.restype = ctypes.c_int
     return lib
 
 
-def _launch(x: torch.Tensor, taps: Taps) -> torch.Tensor:
-    n, c, h, w = x.shape
-    y = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
+def _launch(name: str, x: torch.Tensor, out_hw: Tuple[int, int],
+            h: int, w: int, taps: Taps) -> torch.Tensor:
+    """Launch kernel `name` on contiguous float32 CUDA planes `x` and return
+    its [N, C, *out_hw] output; (h, w) is the smaller plane, as the C entry
+    takes it."""
+    n, c = x.shape[:2]
+    y = torch.empty((n, c, *out_hw), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return y
-    lib = _library()
+    fn = getattr(_library(name), f"stylemc_{name}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.stylemc_upsample2x(x.data_ptr(), y.data_ptr(), n * c, h, w,
-                                     *taps, stream)
+        err = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, *taps, stream)
     if err != 0:
-        raise RuntimeError(f"upsample2x kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return y
+
+
+def launch_upsample(x: torch.Tensor, taps: Taps) -> torch.Tensor:
+    """B1 on a contiguous float32 CUDA tensor [N, C, H, W] → [N, C, 2H, 2W];
+    counts the launch on `upsample2d_kernel.launches`."""
+    h, w = x.shape[2:]
+    y = _launch("upsample2x", x, (2 * h, 2 * w), h, w, taps)
     upsample2d_kernel.launches += 1
     return y
 
 
-def upsample2d_kernel(x: torch.Tensor, f) -> torch.Tensor:
-    """`upsample2d(x, f)` (up=2, padding 0, gain 1, no flip) for a separable
-    4-tap filter `f`, through the CUDA kernel on a CUDA tensor and
-    `upsample2d_plain` on a CPU one. Raises for anything else.
-    `upsample2d_kernel.launches` counts kernel launches."""
+def launch_downsample(x: torch.Tensor, taps: Taps) -> torch.Tensor:
+    """B2 on a contiguous float32 CUDA tensor [N, C, 2H, 2W] → [N, C, H, W];
+    counts the launch on `downsample2d_kernel.launches`."""
+    h, w = x.shape[2:]
+    y = _launch("downsample2x", x, (h // 2, w // 2), h // 2, w // 2, taps)
+    downsample2d_kernel.launches += 1
+    return y
+
+
+def _on_device(x: torch.Tensor, kernel, plain, taps: Taps) -> torch.Tensor:
+    """`plain` for a CPU tensor, `kernel` for a CUDA one; raises otherwise."""
+    if x.device.type == "cpu":
+        return plain(x, taps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return kernel(x, taps)
+
+
+def _cotangent(g: torch.Tensor) -> torch.Tensor:
+    """A cotangent as the kernels take it: float32 and contiguous (the one
+    that reaches the ToRGB chain comes from `img + torgb` and may be a
+    broadcast view)."""
+    if g.dtype != torch.float32:
+        raise TypeError(f"expected a float32 cotangent, got {g.dtype}")
+    return g.contiguous()
+
+
+class _Upsample2x(torch.autograd.Function):
+    """B1 with B2 as its VJP: the transpose of zero-stuff + filter is filter
+    with the reversed taps + stride-2 subsample (`_upsample2x_bwd` of the
+    JAX package). The backward calls `_Downsample2x`, whose backward is
+    this Function again, so gradients of any order go through the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, taps):
+        ctx.taps = taps
+        return _on_device(x, launch_upsample, upsample2d_plain, taps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Downsample2x.apply(_cotangent(g), ctx.taps[::-1]), None
+
+
+class _Downsample2x(torch.autograd.Function):
+    """B2 with B1 as its VJP: the transpose of the stride-2 correlation is
+    the polyphase upsample with the reversed taps (`_downsample2x_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, taps):
+        ctx.taps = taps
+        return _on_device(x, launch_downsample, downsample2d_plain, taps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Upsample2x.apply(_cotangent(g), ctx.taps[::-1]), None
+
+
+def _check_input(x) -> None:
     if not isinstance(x, torch.Tensor) or x.ndim != 4:
         raise ValueError("expected a 4-D NCHW tensor")
     if x.dtype != torch.float32:
         raise TypeError(f"expected float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("expected a contiguous tensor")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def _filter_key(f) -> Tuple[Tuple[int, ...], bytes]:
     if isinstance(f, torch.Tensor):
         f = f.detach().cpu().numpy()
     f = np.asarray(f, np.float64)
-    taps = _upsample_taps(f.shape, f.tobytes())
-    if x.device.type == "cpu":
-        return upsample2d_plain(x, taps)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.requires_grad:
-        raise NotImplementedError(
-            "upsample2d_kernel is forward only: its backward, the 2x "
-            "downsample kernel (_downsample2x_core), is not ported yet")
-    return _launch(x, taps)
+    return f.shape, f.tobytes()
+
+
+def upsample2d_kernel(x: torch.Tensor, f) -> torch.Tensor:
+    """`upsample2d(x, f)` (up=2, padding 0, gain 1, no flip) for a separable
+    4-tap filter `f`: B1 on a CUDA tensor, `upsample2d_plain` on a CPU one,
+    differentiable to any order (its VJP is B2, see `_Upsample2x`). Raises
+    for anything else. `upsample2d_kernel.launches` counts B1 launches."""
+    _check_input(x)
+    return _Upsample2x.apply(x, _upsample_taps(*_filter_key(f)))
+
+
+def downsample2d_kernel(x: torch.Tensor, f) -> torch.Tensor:
+    """`downsample2d(x, f)` (down=2, padding 0, gain 1, no flip) for a
+    separable 4-tap filter `f` and an even plane size: B2 on a CUDA tensor,
+    `downsample2d_plain` on a CPU one, differentiable to any order (its VJP
+    is B1, see `_Downsample2x`). Raises for anything else.
+    `downsample2d_kernel.launches` counts B2 launches."""
+    _check_input(x)
+    if x.shape[2] % 2 or x.shape[3] % 2:
+        raise ValueError(f"expected an even plane size, got {tuple(x.shape)}")
+    return _Downsample2x.apply(x, _downsample_taps(*_filter_key(f)))
 
 
 upsample2d_kernel.launches = 0
+downsample2d_kernel.launches = 0

@@ -3,11 +3,11 @@
 * Importing every module of the port loads no JAX and nothing of
   stylemc_tpu (checked in a fresh interpreter, and by a scan of the source).
 * With no CUDA device, entry points without device="cpu" raise.
-* The kernel wrapper has no silent path: a tensor that is neither on the CPU
-  nor on CUDA raises, and a kernel build without a working nvcc raises with
-  nvcc's output.
-* On a machine with a card, the kernel is held against its plain version
-  (marked `cuda`; skips here).
+* The kernel wrappers have no silent path: a tensor that is neither on the
+  CPU nor on CUDA raises, and a kernel build without a working nvcc raises
+  with nvcc's output.
+* On a machine with a card, B1 is held against its plain version and its
+  gradient goes through B2 (marked `cuda`; skips here).
 """
 
 import os
@@ -19,12 +19,14 @@ import sys
 import numpy as np
 import pytest
 import torch
+from click.testing import CliRunner
 
 import chip_smoke
 from stylemc_torch.ops import setup_filter_np
 from stylemc_torch.ops.kernels import build
 from stylemc_torch.ops.kernels.upfirdn2d import (
-    _canonical_taps, upsample2d_kernel, upsample2d_plain)
+    _canonical_taps, downsample2d_kernel, downsample2d_plain,
+    upsample2d_kernel, upsample2d_plain)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "stylemc_torch"
@@ -53,7 +55,15 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert len(_modules()) >= 20
+    # the serving slice's 25 modules and the training slice's 18
+    assert len(_modules()) >= 43
+    for m in ("stylemc_torch.train.find_direction",
+              "stylemc_torch.cli.find_direction",
+              "stylemc_torch.models.arcface", "stylemc_torch.models.clip.model",
+              "stylemc_torch.models.clip.tokenizer",
+              "stylemc_torch.losses.clip_loss_nada",
+              "stylemc_torch.utils.model_zoo", "stylemc_torch.io.torch_state"):
+        assert m in _modules()
 
 
 def test_source_scan_has_no_jax_or_stylemc_tpu_import():
@@ -73,7 +83,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from stylemc_torch.io import load_generator, save_native
     from stylemc_torch.models.stylegan2.generator import (
         GeneratorConfig, init_generator_params)
+    from stylemc_torch.cli.find_direction import main as find_direction_main
+    from stylemc_torch.models.clip import CLIP_CONFIGS, init_clip_params
     from stylemc_torch.serve import BatchEditor
+    from stylemc_torch.utils.model_zoo import load_arcface, load_clip_models
 
     cfg = GeneratorConfig(img_resolution=8, channel_base=64, channel_max=8,
                           mapping_layers=1)
@@ -85,9 +98,21 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     for call in (lambda: BatchEditor(cfg, params),
                  lambda: BatchEditor.from_files(net),
                  lambda: load_generator(net),
-                 lambda: init_generator_params(torch.Generator(), cfg)):
+                 lambda: init_generator_params(torch.Generator(), cfg),
+                 lambda: load_arcface(allow_random_init=True),
+                 lambda: load_clip_models("small", allow_random_init=True),
+                 lambda: init_clip_params(torch.Generator(),
+                                          CLIP_CONFIGS["ViT-B/32"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    # the training CLI defaults to cuda and raises before loading anything
+    s_file = str(tmp_path / "s.npz")
+    np.savez(s_file, s=np.zeros((4, 26, 512), np.float32))
+    r = CliRunner().invoke(find_direction_main, [
+        "--network", net, "--s_input", s_file, "--outdir",
+        str(tmp_path / "out"), "--allow_random_init"])
+    assert isinstance(r.exception, RuntimeError), r.output
+    assert "device='cpu'" in str(r.exception)
     # explicit CPU still works
     assert BatchEditor(cfg, params, device="cpu").device.type == "cpu"
 
@@ -180,6 +205,40 @@ def test_upsample_kernel_matches_plain_on_cuda():
         assert upsample2d_kernel.launches == before + 1
         torch.testing.assert_close(got, upsample2d_plain(x, taps), rtol=0,
                                    atol=chip_smoke.KERNEL_TOL)
-    with pytest.raises(NotImplementedError, match="_downsample2x_core"):
-        upsample2d_kernel(torch.zeros((1, 3, 4, 4), device="cuda",
-                                      requires_grad=True), f)
+    # under autograd the backward is B2 (downsample2d_kernel), launched
+    x = torch.randn((1, 3, 4, 4), generator=gen, device="cuda",
+                    requires_grad=True)
+    g = torch.randn((1, 3, 8, 8), generator=gen, device="cuda")
+    before_up = upsample2d_kernel.launches
+    before_down = downsample2d_kernel.launches
+    dx, = torch.autograd.grad(upsample2d_kernel(x, f), x, g)
+    assert upsample2d_kernel.launches == before_up + 1
+    assert downsample2d_kernel.launches == before_down + 1
+    torch.testing.assert_close(
+        dx, downsample2d_plain(g, taps[::-1]), rtol=0,
+        atol=chip_smoke.KERNEL_TOL)
+
+
+@pytest.mark.cuda
+def test_downsample_kernel_matches_plain_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    f = setup_filter_np([1, 3, 3, 1])
+    taps = _canonical_taps(f, 1.0, False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape in chip_smoke.DOWN_SHAPES:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        before = downsample2d_kernel.launches
+        got = downsample2d_kernel(x, f)
+        assert downsample2d_kernel.launches == before + 1
+        torch.testing.assert_close(got, downsample2d_plain(x, taps), rtol=0,
+                                   atol=chip_smoke.KERNEL_TOL)
+    # under autograd the backward is B1 with the reversed taps, launched
+    x = torch.randn((1, 3, 8, 8), generator=gen, device="cuda",
+                    requires_grad=True)
+    g = torch.randn((1, 3, 4, 4), generator=gen, device="cuda")
+    before_up = upsample2d_kernel.launches
+    dx, = torch.autograd.grad(downsample2d_kernel(x, f), x, g)
+    assert upsample2d_kernel.launches == before_up + 1
+    torch.testing.assert_close(dx, upsample2d_plain(g, taps[::-1]), rtol=0,
+                               atol=chip_smoke.KERNEL_TOL)
