@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive stylemc_torch's serving and training paths on one CUDA card and
-check them.
+"""Drive stylemc_torch's serving and training paths and its fused-layer
+A/B on one CUDA card and check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -11,8 +11,9 @@ script exits non-zero:
 
   env     card name, nvidia-smi power limit, torch/CUDA versions, TF32 flags
           (both turned off: the fp32 policy compares against fp32 references)
-  build   nvcc builds of both kernel libraries from the checkout's sources,
-          started together
+  build   nvcc builds of the five kernel libraries (B1 upsample2x, B2
+          downsample2x, B3 modconv_fwd, B4 modconv_bwd_data, B5
+          modconv_bwd_weight) from the checkout's sources, started together
   kernel  B1 (upsample2x) against its plain torch version at every ToRGB
           chain shape of FFHQ-256 at batch 16, the 1024 px plane and an odd
           shape; B2 (downsample2x) at the training step's backward shapes
@@ -23,6 +24,23 @@ script exits non-zero:
   grad    first- and second-order gradients through upsample2d_kernel and
           downsample2d_kernel on the card against the same computation
           through the plain versions (relative L2 <= 1e-5)
+  modconv B3, B4 and B5 against their plain versions at the seven
+          full-width FFHQ-256 conv1 shapes (C 512..128, 4²..256²) at batch
+          4, B3 at batch 16 too, an odd shape [3,16→8,24x20] and a
+          clamp-binding case (x·600; there the B3 gate scales with the
+          pre-clamp values, and float64 shows each side's error): B3 max
+          |err| <= 2e-5·max(1, max|y|), each B4/B5 output relative L2 <=
+          1e-5; kernel, plain, library-call (unfused forward, its backward
+          to x and s, torch.nn.grad.conv2d_weight) and bound times
+  modconv_grad  gradients of fused_modulated_layer (x, w, s, bias) on the
+          card against autograd through the plain forward in float64
+          (relative L2 <= 1e-5; the fp32 plain forward's own errors are
+          recorded beside them), the cotangent zeroed where the forwards
+          take other branches of lrelu/clamp; B3/B4/B5 launched once each
+  ab      stylemc_torch.bench.fused_layer_ab: fused against unfused at each
+          conv1, forward at batch 4 and 16, fwd+bwd(x, s) and fwd+bwd(+w) at
+          batch 4; per layer and summed per mode; each mode's launches held
+          to 1/0/0, 1/0/0, 1/1/0 and 1/1/1 B3/B4/B5 per fused call
   train   find_direction at full width: the FFHQ-256 generator below
           (random weights from a seed, polyphase up-convs), CLIP ViT-B/32
           and ViT-B/16 and ArcFace IR-SE-50 with random weights from seeds,
@@ -45,10 +63,11 @@ script exits non-zero:
           subprocesses, each consuming the one before
 
 Each path that renders or trains (the HTTP requests, the throughput calls,
-the parity render on the card, the precompute, the training steps, each
-CLI) is driven with both kernels' launch counts set to 0 just before it
-and read just after; each must show B1 launched 6 times per synthesis call
-and B2 6 times per backward pass.
+the parity render on the card, the precompute, the training steps, the
+one-step parity, each CLI) is driven with every kernel's launch count set
+to 0 just before it and read just after; each must show B1 launched 6
+times per synthesis call, B2 6 times per backward pass, and B3/B4/B5 never
+(the generator runs the unfused layer, as the JAX generator does).
 
 Then the card's nvidia-smi line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -93,14 +112,6 @@ ARCFACE_SEED = 42
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def upsample_bound(shape):
@@ -191,39 +202,12 @@ def event_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20) -> float:
-    """Device time per call of `fn` (which must not synchronise): CUDA
-    events around `iters` calls queued behind a sleep kernel, so the host's
-    launch cost is hidden and the events time the device's work alone,
-    gaps between kernels included. The sleep grows until it outlasts the
-    queuing."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    cycles = 20_000_000
-    for _ in range(6):
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        marks[0].record()
-        torch.cuda._sleep(cycles)
-        marks[1].record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        queued_ms = (time.perf_counter() - t0) * 1e3
-        marks[2].record()
-        marks[2].synchronize()
-        if marks[0].elapsed_time(marks[1]) > 1.5 * queued_ms:
-            return marks[1].elapsed_time(marks[2]) / iters
-        cycles *= 4
-    raise RuntimeError("the calls could not be queued behind a sleep "
-                       "kernel; does the function synchronise?")
-
-
 # ------------------------------------------------------------------ phases
 
 
 def phase_env(torch):
+    from stylemc_torch.bench.timing import nvidia_smi_line
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi_line()
@@ -237,19 +221,26 @@ def phase_env(torch):
     return smi
 
 
-KERNEL_NAMES = ("upsample2x", "downsample2x")
+UPFIRDN_KERNELS = ("upsample2x", "downsample2x")
+MODCONV_KERNELS = ("modconv_fwd", "modconv_bwd_data", "modconv_bwd_weight")
+KERNEL_NAMES = UPFIRDN_KERNELS + MODCONV_KERNELS
+
+
+def _kernel_module(name):
+    from stylemc_torch.ops.kernels import modconv, upfirdn2d
+
+    return modconv if name in MODCONV_KERNELS else upfirdn2d
 
 
 def phase_build():
-    """Build both kernel libraries, one nvcc each, started together."""
+    """Build every kernel library, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from stylemc_torch.ops.kernels import upfirdn2d as kup
     from stylemc_torch.ops.kernels.build import library_dir
 
     def build(name):
         t0 = time.perf_counter()
-        kup._library(name)
+        _kernel_module(name)._library(name)
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -257,7 +248,8 @@ def phase_build():
         seconds = dict(zip(KERNEL_NAMES, pool.map(build, KERNEL_NAMES)))
     ptxas = {}
     for name in KERNEL_NAMES:
-        log = (library_dir([kup.SOURCES[name]]) / "build.log").read_text()
+        sources = _kernel_module(name).SOURCES[name]
+        log = (library_dir(sources) / "build.log").read_text()
         ptxas[name] = [ln.strip() for ln in log.splitlines()
                        if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -269,6 +261,7 @@ def _kernel_rows(torch, name, shapes, kernel, launch, plain, taps, bound,
     """Hold one kernel against its plain version at `shapes` and time the
     kernel, the plain version and the library call (device time), and the
     wrapper (host cost included)."""
+    from stylemc_torch.bench.timing import device_ms
     from stylemc_torch.ops import setup_filter_np
 
     f = setup_filter_np([1, 3, 3, 1])
@@ -364,13 +357,292 @@ def phase_grad(torch):
                    "second_order_rel_l2": rel(h_k, h_p), "launches": counts}
             emit({"phase": "grad", **row})
             # forward, backward, and the double backward through both
-            if counts != {"upsample2x": 2, "downsample2x": 2}:
+            if counts != {"upsample2x": 2, "downsample2x": 2,
+                          **{k: 0 for k in MODCONV_KERNELS}}:
                 raise AssertionError(f"grad {name} {shape}: launches {counts}")
             if not max(row["first_order_rel_l2"],
                        row["second_order_rel_l2"]) <= GRAD_TOL:
                 raise AssertionError(f"grad {name} {shape}: {row}")
             rows.append(row)
     return rows
+
+
+# B3: max |Δ| over max(1, max |y_plain|); B4/B5 outputs and the fused
+# Function's gradients: relative L2
+MODCONV_FWD_TOL = 2e-5
+MODCONV_REL_L2 = 1e-5
+# (name, batch, C_in, C_out, H, W, x scale): the odd shape, and one where
+# the clamp binds (x·600), beside the full-width conv1 shapes
+MODCONV_EXTRA = [("odd", 3, 16, 8, 24, 20, 1.0),
+                 ("clamp", 4, 512, 512, 16, 16, 600.0)]
+
+
+def modconv_bound(name, n, ci, co, h, w):
+    """(ms, 'bytes' | 'operations', flop): the least time an H100 takes for
+    kernel `name` at these shapes — its 3x3 contraction's flops (2 per
+    multiply-add) at the fp32 rate, against each input read once and each
+    output written once (4 B per element) at the HBM rate."""
+    hw = h * w
+    flop = 2 * n * ci * co * 9 * hw
+    elems = {
+        # x, w, s, d, noise, bias in; y out
+        "modconv_fwd": n * ci * hw + 9 * ci * co + n * ci + n * co + hw + co
+        + n * co * hw,
+        # dy, y, x, w, s, d, noise, bias in; dx, ds, dd, db out
+        "modconv_bwd_data": 2 * n * co * hw + n * ci * hw + 9 * ci * co
+        + n * ci + n * co + hw + co + n * ci * hw + n * ci + 2 * n * co,
+        # dy, y, x, s, d in; dW out
+        "modconv_bwd_weight": 2 * n * co * hw + n * ci * hw + n * ci + n * co
+        + 9 * ci * co,
+    }[name]
+    t_bytes = 4 * elems / HBM_BYTES_PER_S
+    t_ops = flop / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flop)
+
+
+def _rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+def phase_modconv(torch):
+    """B3, B4 and B5 against their plain versions at every full-width
+    FFHQ-256 conv1 shape (batch 4; B3 at batch 16 too), an odd shape and a
+    clamp-binding case; device times of each kernel, its plain version and
+    a library yardstick at the conv1 shapes; then the fused Function's
+    gradients on the card against autograd through the plain forward."""
+    from stylemc_torch.bench.fused_layer_ab import (
+        CLAMP, GAIN, layer_shapes, make_inputs, unfused_layer)
+    from stylemc_torch.bench.timing import device_ms_for
+    from stylemc_torch.ops.kernels import modconv as mc
+
+    cases = [(f"b{res}", 4, c, c, res, res, 1.0) for c, res in layer_shapes()]
+    cases += [(f"b{res}_n16", 16, c, c, res, res, 1.0)
+              for c, res in layer_shapes()]
+    cases += MODCONV_EXTRA
+    rows = {name: [] for name in MODCONV_KERNELS}
+    for case, n, ci, co, h, w, scale in cases:
+        inp = make_inputs(n, ci, co, h, w, "cuda", seed=7)
+        x, wt, s, noise, b = (inp[k] for k in ("x", "w", "s", "noise", "b"))
+        x = x * scale
+        d, _ = mc.dcoefs(wt, s)
+        timed = case.startswith("b")
+        shape = {"case": case, "n": n, "ci": ci, "co": co, "h": h, "w": w,
+                 "x_scale": scale}
+
+        def fwd_k():
+            return mc.launch_fwd(x, wt, s, d, noise, b, GAIN, CLAMP)
+
+        def fwd_p():
+            return mc.fused_layer_fwd_plain(x, wt, s, d, noise, b, GAIN, CLAMP)
+
+        y_k, y_p = fwd_k(), fwd_p()
+        ymax = float(y_p.abs().max())
+        err = float((y_k - y_p).abs().max())
+        row = {**shape, "max_abs_err": err, "max_abs_y": ymax,
+               "gate_max_abs_y": MODCONV_FWD_TOL * max(1.0, ymax)}
+        row["gate"] = row["gate_max_abs_y"]
+        if scale != 1.0:
+            # where the clamp binds, the sums run far past ±256: the error
+            # of an fp32 sum scales with its terms, which the clamp hides
+            # from max|y|; float64 shows which side is off
+            z_p = mc.fused_layer_fwd_plain(x, wt, s, d, noise, b, GAIN, None)
+            y64 = mc.fused_layer_fwd_plain(
+                x.double(), wt.double(), s.double(), mc.dcoefs(
+                    wt.double(), s.double())[0], noise.double(), b.double(),
+                GAIN, CLAMP)
+            row.update({
+                "max_abs_preclamp": float(z_p.abs().max()),
+                "kernel_err_vs_fp64": float((y_k.double() - y64).abs().max()),
+                "plain_err_vs_fp64": float((y_p.double() - y64).abs().max()),
+                "elements_over_gate_max_abs_y": int(
+                    ((y_k - y_p).abs() > row["gate_max_abs_y"]).sum()),
+                "gate_unclamped_scale": MODCONV_FWD_TOL * max(
+                    1.0, float(z_p.abs().max()))})
+            row["gate"] = row["gate_unclamped_scale"]
+        if timed:
+            bound_ms, bound_by, flop = modconv_bound("modconv_fwd", n, ci,
+                                                     co, h, w)
+            row.update({
+                "kernel_ms": device_ms_for(fwd_k),
+                "plain_ms": device_ms_for(fwd_p),
+                "library_ms": device_ms_for(lambda: unfused_layer(
+                    x, wt, s, noise, b)),
+                "bound_ms": bound_ms, "bound_by": bound_by, "flop": flop})
+            row["kernel_tflop_per_s"] = flop / row["kernel_ms"] / 1e9
+        emit({"phase": "modconv", "kernel": "modconv_fwd", **row})
+        if not err <= row["gate"]:
+            raise AssertionError(f"modconv_fwd disagrees with its plain "
+                                 f"version: {row}")
+        rows["modconv_fwd"].append(row)
+        if n == 16:
+            continue
+
+        dy = torch.randn(y_p.shape, generator=torch.Generator(
+            device="cuda").manual_seed(11), device="cuda")
+
+        def bwd_k():
+            return mc.launch_bwd_data(dy, y_p, x, wt, s, d, noise, b, GAIN,
+                                      CLAMP)
+
+        def bwd_p():
+            return mc.fused_layer_bwd_data_plain(dy, y_p, x, wt, s, d, noise,
+                                                 b, GAIN, CLAMP)
+
+        def dw_k():
+            return mc.launch_bwd_weight(dy, y_p, x, s, d, GAIN, CLAMP)
+
+        def dw_p():
+            return mc.fused_layer_bwd_weight_plain(dy, y_p, x, s, d, GAIN,
+                                                   CLAMP)
+
+        got, want = bwd_k(), bwd_p()
+        errs = {k: _rel_l2(a, p) for k, a, p in zip(
+            ("dx", "ds_direct", "dd", "db"), got, want)}
+        row = {**shape, "rel_l2": errs, "max_rel_l2": max(errs.values()),
+               "max_abs_err": max(float((a - p).abs().max())
+                                  for a, p in zip(got, want))}
+        dz_d = dy * mc._act_grad(y_p, GAIN, CLAMP) * d[:, :, None, None]
+        x_s = x * s[:, :, None, None]
+        got, want = dw_k(), dw_p()
+        dw_row = {**shape, "max_rel_l2": _rel_l2(got, want),
+                  "max_abs_err": float((got - want).abs().max()),
+                  "max_abs_dw": float(want.abs().max())}
+        del got, want
+        if timed:
+            xr = x.detach().requires_grad_(True)
+            sr = s.detach().requires_grad_(True)
+            y_u = unfused_layer(xr, wt, sr, noise, b)
+            for r, name, k_fn, p_fn, lib in (
+                    (row, "modconv_bwd_data", bwd_k, bwd_p,
+                     lambda: torch.autograd.grad(y_u, (xr, sr), dy,
+                                                 retain_graph=True)),
+                    (dw_row, "modconv_bwd_weight", dw_k, dw_p,
+                     lambda: torch.nn.grad.conv2d_weight(
+                         x_s, wt.shape, dz_d, padding=1))):
+                bound_ms, bound_by, flop = modconv_bound(name, n, ci, co, h, w)
+                r.update({"kernel_ms": device_ms_for(k_fn),
+                          "plain_ms": device_ms_for(p_fn),
+                          "library_ms": device_ms_for(lib),
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "flop": flop})
+                r["kernel_tflop_per_s"] = flop / r["kernel_ms"] / 1e9
+            del y_u, xr, sr
+        dw_row["library_rel_l2"] = _rel_l2(torch.nn.grad.conv2d_weight(
+            x_s, wt.shape, dz_d, padding=1), dw_p())
+        for name, r in (("modconv_bwd_data", row),
+                        ("modconv_bwd_weight", dw_row)):
+            emit({"phase": "modconv", "kernel": name, **r})
+            if not r["max_rel_l2"] <= MODCONV_REL_L2:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version: {r}")
+            rows[name].append(r)
+        del dz_d, x_s
+    torch.cuda.empty_cache()
+    return rows, phase_modconv_grad(torch)
+
+
+def phase_modconv_grad(torch):
+    """Gradients of the fused layer (x, w, styles, bias) on the card, through
+    B3/B4/B5, against autograd through the plain forward, at the odd shape,
+    the clamp case and the smallest and largest conv1 planes.
+
+    The gate holds them against the plain forward run in float64: in fp32,
+    that reference's own weight and style gradients are 1.2e-5 off float64
+    at the 256² layer, where the fused layer's are 1.6e-6 (ROADMAP §C). The
+    cotangent is zeroed where the forwards take other branches of the
+    piecewise activation (`activation_flips`). The errors against the fp32
+    plain forward, with the full cotangent too, and the number of such
+    elements are recorded beside it."""
+    from stylemc_torch.bench.fused_layer_ab import (
+        CLAMP, GAIN, activation_flips, make_inputs)
+    from stylemc_torch.ops.kernels import modconv as mc
+
+    rows = []
+    for case, n, ci, co, h, w, scale in MODCONV_EXTRA + [
+            ("b4", 4, 512, 512, 4, 4, 1.0),
+            ("b256", 4, 128, 128, 256, 256, 1.0)]:
+        inp = make_inputs(n, ci, co, h, w, "cuda", seed=12)
+        x, wt, s, noise, b = (inp[k] for k in ("x", "w", "s", "noise", "b"))
+        x = x * scale
+        cot = torch.randn((n, co, h, w), generator=torch.Generator(
+            device="cuda").manual_seed(13), device="cuda")
+
+        def grads(kind, cot):
+            dtype = torch.float64 if kind == "fp64" else torch.float32
+            leaves = [t.detach().to(dtype).requires_grad_(True)
+                      for t in (x, wt, s, b)]
+            if kind == "fused":
+                y = mc.fused_modulated_layer(leaves[0], leaves[1], leaves[2],
+                                             noise, leaves[3], gain=GAIN,
+                                             clamp=CLAMP)
+            else:
+                d, _ = mc.dcoefs(leaves[1], leaves[2])
+                y = mc.fused_layer_fwd_plain(
+                    leaves[0], leaves[1], leaves[2], d, noise.to(dtype),
+                    leaves[3], GAIN, CLAMP)
+            return (y.detach(),
+                    *torch.autograd.grad(y, leaves, cot.to(dtype)))
+
+        names = ("dx", "dw", "ds", "db")
+        (y_k, *got), launches = count_launches(lambda: grads("fused", cot))
+        y_p, *want = grads("plain", cot)
+        full = {k: _rel_l2(g, p) for k, g, p in zip(names, got, want)}
+        # decisions compared in float64: a float64 output within an fp32
+        # ulp of ±clamp rounds onto the boundary
+        y64 = grads("fp64", cot)[0]
+        flips = (activation_flips(y_k.double(), y64)
+                 | activation_flips(y_p.double(), y64))
+        masked = cot.masked_fill(flips, 0.0)
+        _, *got = grads("fused", masked)
+        _, *want = grads("plain", masked)
+        _, *exact = grads("fp64", masked)
+        errs = {k: _rel_l2(g.double(), e) for k, g, e in zip(names, got,
+                                                             exact)}
+        row = {"case": case, "n": n, "ci": ci, "co": co, "h": h, "w": w,
+               "x_scale": scale, "rel_l2_to_fp64": errs,
+               "plain_rel_l2_to_fp64": {
+                   k: _rel_l2(p.double(), e)
+                   for k, p, e in zip(names, want, exact)},
+               "rel_l2_to_plain": {k: _rel_l2(g, p) for k, g, p in zip(
+                   names, got, want)},
+               "activation_flips": int(flips.sum()),
+               "rel_l2_to_plain_full_cotangent": full, "launches": launches}
+        emit({"phase": "modconv_grad", **row})
+        if launches != {"upsample2x": 0, "downsample2x": 0, "modconv_fwd": 1,
+                        "modconv_bwd_data": 1, "modconv_bwd_weight": 1}:
+            raise AssertionError(f"modconv_grad {case}: launches {launches}")
+        if not max(errs.values()) <= MODCONV_REL_L2:
+            raise AssertionError(f"modconv_grad {case}: {row}")
+        rows.append(row)
+    return rows
+
+
+def phase_ab(torch, smi, paths):
+    """The fused-layer A/B (`stylemc_torch.bench.fused_layer_ab`) at every
+    full-width conv1, each mode's B3/B4/B5 launches counted from 0 and held
+    to its per-call counts."""
+    from stylemc_torch.bench import fused_layer_ab as ab
+
+    totals = {}
+    for mode in ab.MODES:
+        (rows, total, calls), launches = count_launches(
+            lambda: ab.run_mode(mode, "cuda"))
+        for row in rows:
+            emit({"phase": "ab", **row})
+        emit({"phase": "ab_total", "card": smi, "fused_calls": calls,
+              "launches": launches, **total})
+        want = {"upsample2x": 0, "downsample2x": 0,
+                **{k: calls * per for k, per in zip(MODCONV_KERNELS,
+                                                    mode.launches)}}
+        if launches != want:
+            raise AssertionError(f"ab {mode.name}: launches {launches} over "
+                                 f"{calls} fused calls, not {want}")
+        paths[f"ab_{mode.name}"] = {"launches": launches,
+                                    "fused_calls": calls}
+        totals[mode.name] = total
+    torch.cuda.empty_cache()
+    return totals
 
 
 def _get(url):
@@ -408,14 +680,23 @@ def make_network(torch, tmp):
     return cfg, net, direction
 
 
-def count_launches(fn):
-    """(fn(), {kernel: launches during it}), both counts set to 0 just
-    before the call."""
+def launch_counters():
+    """{kernel name: the object whose `launches` counts its calls}."""
+    from stylemc_torch.ops.kernels import modconv
     from stylemc_torch.ops.kernels.upfirdn2d import (
         downsample2d_kernel, upsample2d_kernel)
 
-    counters = {"upsample2x": upsample2d_kernel,
-                "downsample2x": downsample2d_kernel}
+    return {"upsample2x": upsample2d_kernel,
+            "downsample2x": downsample2d_kernel,
+            "modconv_fwd": modconv.launch_fwd,
+            "modconv_bwd_data": modconv.launch_bwd_data,
+            "modconv_bwd_weight": modconv.launch_bwd_weight}
+
+
+def count_launches(fn):
+    """(fn(), {kernel: launches during it}), every count set to 0 just
+    before the call."""
+    counters = launch_counters()
     for c in counters.values():
         c.launches = 0
     out = fn()
@@ -425,13 +706,15 @@ def count_launches(fn):
 def record_launches(paths, cfg, path, launches, synthesis_calls,
                     backward_calls=0) -> None:
     """Keep a path's launch counts and hold them to one B1 launch per upper
-    block of each synthesis call and one B2 launch per upper block of each
-    backward pass through it."""
+    block of each synthesis call, one B2 launch per upper block of each
+    backward pass through it, and no B3/B4/B5 launch: the generator runs
+    the unfused layer, as the JAX generator does."""
     per_call = len(cfg.block_resolutions) - 1
     paths[path] = {"launches": launches, "synthesis_calls": synthesis_calls,
                    "backward_calls": backward_calls}
     want = {"upsample2x": per_call * synthesis_calls,
-            "downsample2x": per_call * backward_calls}
+            "downsample2x": per_call * backward_calls,
+            **{name: 0 for name in MODCONV_KERNELS}}
     if launches != want:
         raise AssertionError(
             f"{path}: launches {launches} over {synthesis_calls} synthesis "
@@ -550,7 +833,9 @@ def profiled(torch, fn, record_shapes: bool = False):
     wall ms, CUDA-event span ms, device busy ms). With `record_shapes` the
     host's ops are traced too, with their input shapes. The profiler can
     miss device events, so a trace whose busy time is under half the span
-    is taken again, up to three times."""
+    is taken again, up to three times; a host-bound call's span varies
+    from trace to trace, so a trace whose busy time repeats the previous
+    one's within 2 % is kept too (missed events would not repeat)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -559,6 +844,7 @@ def profiled(torch, fn, record_shapes: bool = False):
         activities.append(ProfilerActivity.CPU)
     fn()
     torch.cuda.synchronize()
+    busy_before = None
     for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -574,8 +860,11 @@ def profiled(torch, fn, record_shapes: bool = False):
                       for evt in prof.events()
                       if evt.device_type == DeviceType.CUDA)
         span_ms = start.elapsed_time(end)
-        if busy_ms >= 0.5 * span_ms:
+        if busy_ms >= 0.5 * span_ms or (
+                busy_before is not None
+                and abs(busy_ms - busy_before) <= 0.02 * busy_before):
             return prof, wall_ms, span_ms, busy_ms
+        busy_before = busy_ms
     raise RuntimeError(f"the profiler recorded {busy_ms} ms of device "
                        f"time in a {span_ms} ms span, three times")
 
@@ -708,21 +997,21 @@ def phase_parity(editor, net, direction, paths):
     record_launches(paths, editor.cfg, "parity", launches, 2)
 
 
-# Runs a CLI module as `python -m` does, then prints both kernels' launch
-# counts in that process as its last line.
+# Runs a CLI module as `python -m` does, then prints every kernel's launch
+# count in that process as its last line.
 CLI_RUNNER = """\
 import json, runpy, sys
-from stylemc_torch.ops.kernels.upfirdn2d import (
-    downsample2d_kernel, upsample2d_kernel)
+from chip_smoke import launch_counters
+counters = launch_counters()
 sys.argv = sys.argv[1:]
-upsample2d_kernel.launches = downsample2d_kernel.launches = 0
+for c in counters.values():
+    c.launches = 0
 try:
     runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
 except SystemExit as e:
     if e.code not in (None, 0):
         raise
-print(json.dumps({"upsample2x": upsample2d_kernel.launches,
-                  "downsample2x": downsample2d_kernel.launches}))
+print(json.dumps({k: c.launches for k, c in counters.items()}))
 """
 
 
@@ -913,8 +1202,9 @@ def phase_train(torch, net, smi, paths):
               "trainable_rows_moved": bool((np.abs(d[0, TRAINABLE]).max(1)
                                             > 0).all()),
               "frozen_rows_zero": bool(np.abs(d[:, frozen]).max() == 0),
-              "step_launches": step_launches == {"upsample2x": 6 * steps,
-                                                 "downsample2x": 6 * steps}}
+              "step_launches": step_launches == {
+                  "upsample2x": 6 * steps, "downsample2x": 6 * steps,
+                  **{k: 0 for k in MODCONV_KERNELS}}}
     emit({"phase": "train", "card": smi, "seeds": TRAIN_SEEDS,
           "batch": fdc.batch_size, "clip_type": fdc.clip_type,
           "clip_loss_type": fdc.clip_loss_type, "precision": "fp32",
@@ -1089,6 +1379,57 @@ def phase_train_parity(torch, net, editor, direction_file, models, paths):
                              f"gradient rel L2 {grad_rel}")
 
 
+MODCONV_REPLACES = {
+    "modconv_fwd": ("modconv_pallas.py:88", "_fwd_kernel/_fwd_call"),
+    "modconv_bwd_data": ("modconv_pallas.py:170",
+                         "_bwd_data_kernel/_bwd_data_call"),
+    "modconv_bwd_weight": ("modconv_pallas.py:310",
+                           "_bwd_weight_kernel/_bwd_weight_call"),
+}
+
+
+def modconv_entries(rows, paths, smi):
+    """The `kernels` line's B3/B4/B5 entries: times summed over the seven
+    full-width conv1 shapes at batch 4 (one training step's conv1s, were
+    the generator wired to the kernels); B3's batch-16 sum beside it."""
+    entries = []
+    for name in MODCONV_KERNELS:
+        main_rows = [r for r in rows[name] if r["case"].startswith("b")
+                     and r["n"] == 4]
+        line, function = MODCONV_REPLACES[name]
+
+        def total(key, rs=main_rows):
+            return sum(r[key] for r in rs)
+
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"stylemc_torch/ops/kernels/csrc/{name}.cu",
+            "replaces": f"stylemc_tpu/ops/pallas/{line}",
+            "replaces_function": function,
+            "launches": sum(p["launches"][name] for p in paths.values()),
+            "launches_by_path": {k: v["launches"][name]
+                                 for k, v in paths.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": main_rows[0]["bound_by"],
+            "library_ms": total("library_ms"),
+            "tflop_per_s": total("flop") / total("kernel_ms") / 1e9,
+            "times_are": "sum over the seven FFHQ-256 conv1 shapes at batch "
+                         "4; device time (CUDA events around calls queued "
+                         "behind a sleep kernel); launches from the A/B "
+                         "paths (ab_*), 0 on every other path",
+            "card": smi}
+        if name == "modconv_fwd":
+            b16 = [r for r in rows[name] if r["n"] == 16]
+            entry.update({f"batch16_{k}": total(k, b16) for k in (
+                "kernel_ms", "plain_ms", "bound_ms", "library_ms")})
+        else:
+            entry["max_rel_l2"] = max(r["max_rel_l2"] for r in rows[name])
+        entries.append(entry)
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1104,7 +1445,10 @@ def main() -> int:
     phase_build()
     kernel_rows = phase_kernel(torch)
     phase_grad(torch)
+    # before any profiler trace, like the training phases
+    modconv_rows, _ = phase_modconv(torch)
     paths = {}  # path → its launches, synthesis calls and backward passes
+    phase_ab(torch, smi, paths)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         _, net, direction = make_network(torch, tmp)
         # training first: its timed run comes before any profiler trace
@@ -1125,7 +1469,7 @@ def main() -> int:
         "downsample2x": "sum over the six backward shapes [4,3,2h,2h] of "
                         "one batch-4 training step"}
     kernels = []
-    for name in KERNEL_NAMES:
+    for name in UPFIRDN_KERNELS:
         rows = kernel_rows[name]
         main_rows = [r for r in rows if tuple(r["shape"]) in timed[name]]
 
@@ -1153,6 +1497,7 @@ def main() -> int:
                          "wrapper_event_ms CUDA events over back-to-back "
                          "wrapper calls (host cost included)",
             "card": smi})
+    kernels += modconv_entries(modconv_rows, paths, smi)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -43,8 +43,9 @@ def library_dir(sources: Sequence[Path]) -> Path:
 
 
 def build_library(name: str, sources: Sequence[Path]) -> Path:
-    """Compile `sources` into lib<name>.so (cached by content) and return
-    its path. `build.log` beside it keeps the command and ptxas' report."""
+    """Compile the `.cu` files of `sources` into lib<name>.so (cached by the
+    content of all of `sources`, headers included) and return its path.
+    `build.log` beside it keeps the command and ptxas' report."""
     sources = [Path(s) for s in sources]
     out_dir = library_dir(sources)
     lib = out_dir / f"lib{name}.so"
@@ -56,7 +57,8 @@ def build_library(name: str, sources: Sequence[Path]) -> Path:
         if lib.exists():  # another process built it while we waited
             return lib
         tmp = out_dir / f"lib{name}.so.tmp{os.getpid()}"
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(s) for s in sources if s.suffix == ".cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         (out_dir / "build.log").write_text(
             " ".join(cmd) + "\n" + proc.stdout + proc.stderr)

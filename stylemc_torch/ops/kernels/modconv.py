@@ -1,0 +1,327 @@
+"""The fused modulated synthesis layer as CUDA kernels: B3 (forward), B4
+(backward to x, styles, the demodulation coefficients and the bias) and B5
+(backward to the weight). Counterpart of
+`stylemc_tpu/ops/pallas/modconv_pallas.py`.
+
+`fused_modulated_layer` is one StyleGAN2 synthesis layer body for up=1, a
+3x3 kernel and padding 1: modulate, convolve, demodulate, add noise and
+bias, lrelu(0.2)·gain, clamp. It runs the plain versions below for CPU
+tensors and launches `csrc/modconv_{fwd,bwd_data,bwd_weight}.cu` for CUDA
+tensors, or raises. Its backward (`_FusedLayer`) launches B5 only when the
+weight needs a gradient, so a frozen generator (find_direction, serving)
+never pays for dW; the chain through d = rsqrt(s²·ΣW² + 1e-8) runs in plain
+torch outside the kernels, as in the JAX wrapper.
+
+`launch_fwd.launches`, `launch_bwd_data.launches` and
+`launch_bwd_weight.launches` count the calls of each kernel; B4 is two CUDA
+launches (the dz pass and the transposed convolution) and counts once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+LRELU_SLOPE = 0.2
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+KERNELS = ("modconv_fwd", "modconv_bwd_data", "modconv_bwd_weight")
+SOURCES = {name: (_CSRC / f"{name}.cu", _CSRC / "modconv_common.cuh")
+           for name in KERNELS}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "stylemc_modconv_fwd": [_P] * 7 + [_I] * 5 + [_F, _F, _I, _P],
+    "stylemc_modconv_bwd_data": [_P] * 13 + [_I] * 5 + [_F, _F, _I, _P],
+    "stylemc_modconv_bwd_data_tiles": [_I] * 2,
+    "stylemc_modconv_bwd_weight": [_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P],
+    "stylemc_modconv_bwd_weight_splits": [_I] * 5,
+}
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def dcoefs(w: torch.Tensor, styles: torch.Tensor):
+    """(d, w2): the demodulation coefficients d = rsqrt(s²·ΣW² + 1e-8)
+    [N, CO] and w2 = Σ_taps W² [CO, CI]."""
+    w2 = w.square().sum(dim=(2, 3))
+    return torch.rsqrt(styles.square() @ w2.T + 1e-8), w2
+
+
+def _act_grad(y: torch.Tensor, gain: float, clamp: Optional[float]):
+    """d(clamp(lrelu(z)·gain))/dz read off the output y: 0 where the clamp
+    binds (|y| >= clamp), else gain or gain·0.2 by the sign of y."""
+    g = torch.full_like(y, gain * LRELU_SLOPE).masked_fill_(y >= 0, gain)
+    if clamp is not None:
+        g = g.masked_fill(y.abs() >= clamp, 0.0)
+    return g
+
+
+def fused_layer_fwd_plain(x, w, styles, d, noise, bias, gain: float,
+                          clamp: Optional[float]):
+    """B3's function in torch ops: s and d (`dcoefs`) folded into
+    per-sample taps, one grouped convolution over the batch, then noise,
+    bias, lrelu·gain and the clamp. x [N,CI,H,W], w [CO,CI,3,3], styles
+    [N,CI], d [N,CO], noise [H,W], bias [CO] → y [N,CO,H,W]."""
+    n, ci, h, wd = x.shape
+    co = w.shape[0]
+    wm = w[None] * styles[:, None, :, None, None] * d[:, :, None, None, None]
+    acc = F.conv2d(x.reshape(1, n * ci, h, wd),
+                   wm.reshape(n * co, ci, 3, 3), padding=1,
+                   groups=n).reshape(n, co, h, wd)
+    z1 = acc + noise + bias[:, None, None]
+    y = torch.where(z1 >= 0, z1, z1 * LRELU_SLOPE) * gain
+    return y if clamp is None else y.clamp(-clamp, clamp)
+
+
+def fused_layer_bwd_data_plain(dy, y, x, w, styles, d, noise, bias,
+                               gain: float, clamp: Optional[float]):
+    """B4's function in torch ops: (dx, ds_direct, dd, db). dz = dy·g(y);
+    dxmod is the transposed convolution of dz with the taps scaled by d (a
+    grouped conv_transpose2d over the batch); dx = dxmod·s, ds_direct =
+    Σ dxmod·x, db = Σ dz and dd = (Σ dz·z1 − b·Σ dz − Σ dz·noise)/d with
+    z1 rebuilt from y, each summed over the plane."""
+    n, co, h, wd = dy.shape
+    ci = w.shape[1]
+    dz = dy * _act_grad(y, gain, clamp)
+    wt = w[None] * d[:, :, None, None, None]
+    dxmod = F.conv_transpose2d(dz.reshape(1, n * co, h, wd),
+                               wt.reshape(n * co, ci, 3, 3), padding=1,
+                               groups=n).reshape(n, ci, h, wd)
+    dx = dxmod * styles[:, :, None, None]
+    ds_direct = (dxmod * x).sum(dim=(2, 3))
+    a = y / gain
+    z1 = torch.where(a >= 0, a, a / LRELU_SLOPE)
+    db = dz.sum(dim=(2, 3))
+    t1 = (dz * z1).sum(dim=(2, 3))
+    t3 = (dz * noise).sum(dim=(2, 3))
+    dd = (t1 - bias * db - t3) / d
+    return dx, ds_direct, dd, db
+
+
+def fused_layer_bwd_weight_plain(dy, y, x, styles, d, gain: float,
+                                 clamp: Optional[float]):
+    """B5's function in torch ops: dW[co,ci,t] = Σ_n Σ_px (dz·d)[n,co,px] ·
+    (x·s)[n,ci,px+off_t], the scales applied inside the per-n sum, as one
+    matrix product over the unfolded input. → [CO,CI,3,3]."""
+    n, co, h, wd = dy.shape
+    ci = x.shape[1]
+    dzd = dy * _act_grad(y, gain, clamp) * d[:, :, None, None]
+    cols = F.unfold(x * styles[:, :, None, None], 3, padding=1)
+    dw = torch.einsum("nop,nkp->ok", dzd.reshape(n, co, h * wd), cols)
+    return dw.reshape(co, ci, 3, 3)
+
+
+# ------------------------------------------------------------------- kernels
+
+
+@functools.cache
+def _library(name: str) -> ctypes.CDLL:
+    """The kernel library `name` (one of KERNELS), built from its sources at
+    first use."""
+    from .build import build_library
+
+    lib = ctypes.CDLL(str(build_library(name, SOURCES[name])))
+    for fn, argtypes in _ARGTYPES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _clamp_args(clamp: Optional[float]) -> Tuple[float, int]:
+    return (0.0, 0) if clamp is None else (float(clamp), 1)
+
+
+def _run(name: str, fn: str, device: torch.device, *args) -> None:
+    """Call the C entry `fn` of library `name` on the current stream of
+    `device` (tensors are passed by data pointer) and raise on a CUDA
+    error."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(_library(name), fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def launch_fwd(x, w, styles, d, noise, bias, gain: float,
+               clamp: Optional[float]) -> torch.Tensor:
+    """B3 on contiguous float32 CUDA tensors → y [N,CO,H,W]; counts the
+    launch on `launch_fwd.launches`."""
+    n, ci, h, wd = x.shape
+    co = w.shape[0]
+    wt = w.permute(1, 2, 3, 0).reshape(ci, 9, co).contiguous()
+    y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
+    _run("modconv_fwd", "stylemc_modconv_fwd", x.device, x, wt, styles, d,
+         noise, bias, y, n, ci, co, h, wd, gain, *_clamp_args(clamp))
+    launch_fwd.launches += 1
+    return y
+
+
+def launch_bwd_data(dy, y, x, w, styles, d, noise, bias, gain: float,
+                    clamp: Optional[float]):
+    """B4 on contiguous float32 CUDA tensors → (dx, ds_direct, dd, db), as
+    `fused_layer_bwd_data_plain`; counts one call on
+    `launch_bwd_data.launches` (two CUDA launches). ds_direct is the sum of
+    the kernel's per-tile partials."""
+    n, co, h, wd = dy.shape
+    ci = x.shape[1]
+    lib = _library("modconv_bwd_data")
+    tiles = lib.stylemc_modconv_bwd_data_tiles(h, wd)
+    wtt = w.flip(2, 3).permute(0, 2, 3, 1).reshape(co, 9, ci).contiguous()
+    dzd = torch.empty_like(dy)
+    dx = torch.empty_like(x)
+    ds_part = torch.empty((n, ci, tiles), dtype=x.dtype, device=x.device)
+    dd = torch.empty((n, co), dtype=x.dtype, device=x.device)
+    db = torch.empty_like(dd)
+    _run("modconv_bwd_data", "stylemc_modconv_bwd_data", x.device, dy, y, x,
+         wtt, styles, d, noise, bias, dzd, dx, ds_part, dd, db, n, ci, co, h,
+         wd, gain, *_clamp_args(clamp))
+    launch_bwd_data.launches += 1
+    return dx, ds_part.sum(dim=2), dd, db
+
+
+def launch_bwd_weight(dy, y, x, styles, d, gain: float,
+                      clamp: Optional[float]) -> torch.Tensor:
+    """B5 on contiguous float32 CUDA tensors → dW's direct term
+    [CO,CI,3,3], the sum of the kernel's split partials; counts the launch
+    on `launch_bwd_weight.launches`."""
+    n, co, h, wd = dy.shape
+    ci = x.shape[1]
+    lib = _library("modconv_bwd_weight")
+    with torch.cuda.device(x.device):
+        splits = lib.stylemc_modconv_bwd_weight_splits(n, ci, co, h, wd)
+    if splits < 0:
+        raise RuntimeError(f"modconv_bwd_weight: CUDA error {-splits}")
+    partial = torch.empty((splits, co, ci, 9), dtype=x.dtype, device=x.device)
+    _run("modconv_bwd_weight", "stylemc_modconv_bwd_weight", x.device, dy, y,
+         x, styles, d, partial, n, ci, co, h, wd, gain, *_clamp_args(clamp),
+         splits)
+    launch_bwd_weight.launches += 1
+    return partial.sum(dim=0).reshape(co, ci, 3, 3)
+
+
+launch_fwd.launches = 0
+launch_bwd_data.launches = 0
+launch_bwd_weight.launches = 0
+
+
+def _on_device(device: torch.device, kernel, plain, *args):
+    """`plain(*args)` for CPU tensors, `kernel(*args)` for CUDA ones."""
+    if device.type == "cpu":
+        return plain(*args)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return kernel(*args)
+
+
+# ------------------------------------------------------------------ autograd
+
+
+class _FusedLayer(torch.autograd.Function):
+    """B3 forward; backward B4 (every backward: dW's demodulation term
+    needs its dd as well) and B5 only when the weight needs a gradient,
+    with the chain through d in plain torch (`_fused_layer_bwd` of the JAX
+    package). The noise gets a zero cotangent (see fused_modulated_layer)."""
+
+    @staticmethod
+    def forward(ctx, x, w, styles, noise, bias, gain, clamp):
+        d, _ = dcoefs(w, styles)
+        y = _on_device(x.device, launch_fwd, fused_layer_fwd_plain, x, w,
+                       styles, d, noise, bias, gain, clamp)
+        ctx.save_for_backward(x, w, styles, noise, bias, y, d)
+        ctx.gain, ctx.clamp = gain, clamp
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x, w, styles, noise, bias, y, d = ctx.saved_tensors
+        gain, clamp = ctx.gain, ctx.clamp
+        need_x, need_w, need_s, need_noise, need_b = ctx.needs_input_grad[:5]
+        if dy.dtype != torch.float32:
+            raise TypeError(f"expected a float32 cotangent, got {dy.dtype}")
+        dy = dy.contiguous()
+        dx, ds_direct, dd, db = _on_device(
+            x.device, launch_bwd_data, fused_layer_bwd_data_plain, dy, y, x,
+            w, styles, d, noise, bias, gain, clamp)
+        # d = rsqrt(s² @ w2ᵀ + eps): dσ² = dd·(-1/2)·d³
+        w2 = w.square().sum(dim=(2, 3))
+        dsig = dd * (-0.5) * d ** 3
+        ds = ds_direct + 2.0 * styles * (dsig @ w2) if need_s else None
+        dw = None
+        if need_w:
+            dw = _on_device(x.device, launch_bwd_weight,
+                            fused_layer_bwd_weight_plain, dy, y, x, styles,
+                            d, gain, clamp)
+            dw = dw + 2.0 * w * (styles.square().T @ dsig).T[:, :, None, None]
+        return (dx if need_x else None, dw, ds,
+                torch.zeros_like(noise) if need_noise else None,
+                db.sum(dim=0) if need_b else None, None, None)
+
+
+def fused_modulated_layer(x, w, styles, noise, bias,
+                          gain: float = math.sqrt(2),
+                          clamp: Optional[float] = 256.0,
+                          mxu: str = "default", force: bool = False,
+                          noise_grad: bool = False):
+    """The fused synthesis layer (up=1, 3x3, pad 1, demodulate, noise,
+    bias, lrelu(0.2)·gain, clamp): CUDA kernels B3/B4/B5 for CUDA tensors,
+    the plain versions for CPU tensors; None where the layer is not one it
+    computes, and the caller takes the unfused path.
+
+    x [N,CI,H,W]; w [CO,CI,3,3]; styles [N,CI]; noise [H,W] or [1,1,H,W]
+    (already scaled by noise_strength); bias [CO]; all float32.
+
+    Returns None for a w that is not 3x3, for noise that is None or not
+    2-D/4-D, for per-sample [N,1,H,W] noise, and when `noise_grad` is True:
+    the noise input is not differentiable through this path (its cotangent
+    is zero; the JAX contract), so a caller that differentiates the noise
+    must take the unfused path.
+
+    The JAX package also declines W % 128 != 0, H < 8, shapes over its VMEM
+    budget and non-TPU backends without `force`; those limits are the TPU
+    kernel's (Mosaic's lane tiling and VMEM), not the function's, so this
+    port runs any plane size (4x4 included) and `force` has no effect.
+
+    Types: float32 only; a bf16 x raises TypeError. `mxu` is "default" or
+    "highest" and both compute in fp32 FMAs here. In JAX, "default" means
+    bf16 multiplies on the TPU's MXU; a tensor-core mode is later work.
+    """
+    if mxu not in ("default", "highest"):
+        raise ValueError(f"mxu must be 'default' or 'highest', got {mxu!r}")
+    if noise_grad:
+        return None
+    if w.ndim != 4 or tuple(w.shape[2:]) != (3, 3) or noise is None \
+            or noise.ndim not in (2, 4):
+        return None
+    if noise.ndim == 4:
+        if noise.shape[0] != 1 or noise.shape[1] != 1:
+            return None
+        noise = noise[0, 0]
+    for name, t in (("x", x), ("w", w), ("styles", styles), ("bias", bias)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    n, ci, h, wd = x.shape
+    co = w.shape[0]
+    if w.shape[1] != ci or tuple(styles.shape) != (n, ci) \
+            or tuple(bias.shape) != (co,):
+        raise ValueError(f"shapes do not agree: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, styles {tuple(styles.shape)}, "
+                         f"bias {tuple(bias.shape)}")
+    if any(t.device != x.device for t in (w, styles, noise, bias)):
+        raise ValueError("x, w, styles, noise and bias must be on one device")
+    noise = noise.to(torch.float32).expand(h, wd).contiguous()
+    return _FusedLayer.apply(x.contiguous(), w.contiguous(),
+                             styles.contiguous(), noise, bias.contiguous(),
+                             float(gain),
+                             None if clamp is None else float(clamp))

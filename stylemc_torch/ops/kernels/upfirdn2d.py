@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {name: _CSRC / f"{name}.cu" for name in ("upsample2x", "downsample2x")}
+SOURCES = {name: (_CSRC / f"{name}.cu",)
+           for name in ("upsample2x", "downsample2x")}
 
 Taps = Tuple[float, float, float, float]
 
@@ -113,7 +114,7 @@ def _library(name: str) -> ctypes.CDLL:
     `csrc/<name>.cu` at first use."""
     from .build import build_library
 
-    lib = ctypes.CDLL(str(build_library(name, [SOURCES[name]])))
+    lib = ctypes.CDLL(str(build_library(name, SOURCES[name])))
     fn = getattr(lib, f"stylemc_{name}")
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,

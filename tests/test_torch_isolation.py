@@ -7,7 +7,8 @@
   CPU nor on CUDA raises, and a kernel build without a working nvcc raises
   with nvcc's output.
 * On a machine with a card, B1 is held against its plain version and its
-  gradient goes through B2 (marked `cuda`; skips here).
+  gradient goes through B2, and B3/B4/B5 (the fused synthesis layer) are
+  held against theirs (marked `cuda`; skip here).
 """
 
 import os
@@ -23,7 +24,7 @@ from click.testing import CliRunner
 
 import chip_smoke
 from stylemc_torch.ops import setup_filter_np
-from stylemc_torch.ops.kernels import build
+from stylemc_torch.ops.kernels import build, modconv
 from stylemc_torch.ops.kernels.upfirdn2d import (
     _canonical_taps, downsample2d_kernel, downsample2d_plain,
     upsample2d_kernel, upsample2d_plain)
@@ -55,9 +56,13 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # the serving slice's 25 modules and the training slice's 18
-    assert len(_modules()) >= 43
-    for m in ("stylemc_torch.train.find_direction",
+    # the serving slice's 25 modules, the training slice's 18, and the
+    # fused layer's kernel module and bench package (4)
+    assert len(_modules()) >= 47
+    for m in ("stylemc_torch.ops.kernels.modconv",
+              "stylemc_torch.bench.fused_layer_ab",
+              "stylemc_torch.bench.timing",
+              "stylemc_torch.train.find_direction",
               "stylemc_torch.cli.find_direction",
               "stylemc_torch.models.arcface", "stylemc_torch.models.clip.model",
               "stylemc_torch.models.clip.tokenizer",
@@ -182,6 +187,42 @@ def test_chip_smoke_yardstick_and_bound():
     assert 4.6e-3 < ms < 4.8e-3
 
 
+def test_chip_smoke_modconv_bound_and_yardstick():
+    # FFHQ-256's 256² conv1 at batch 4: 77.3 GFLOP against 0.27 GB
+    ms, by, flop = chip_smoke.modconv_bound("modconv_fwd", 4, 128, 128, 256,
+                                            256)
+    assert by == "operations" and flop == 2 * 4 * 128 * 128 * 9 * 256 * 256
+    assert abs(ms - flop / 67e12 * 1e3) < 1e-12
+    for name in chip_smoke.MODCONV_KERNELS:
+        assert chip_smoke.modconv_bound(name, 4, 512, 512, 4, 4)[1] == \
+            "operations"
+    # B5's library yardstick computes the plain version's function
+    rs = np.random.RandomState(0)
+    x, dy, y = (torch.from_numpy(rs.randn(*shape).astype(np.float32))
+                for shape in ((2, 5, 6, 7), (2, 3, 6, 7), (2, 3, 6, 7)))
+    s = torch.from_numpy(rs.rand(2, 5).astype(np.float32) + 0.5)
+    d = torch.from_numpy(rs.rand(2, 3).astype(np.float32) + 0.5)
+    gain = float(np.sqrt(2))
+    want = modconv.fused_layer_bwd_weight_plain(dy, y * 200, x, s, d, gain,
+                                                256.0)
+    dz_d = dy * modconv._act_grad(y * 200, gain, 256.0) * d[:, :, None, None]
+    got = torch.nn.grad.conv2d_weight(x * s[:, :, None, None], (3, 5, 3, 3),
+                                      dz_d, padding=1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_modconv_wrapper_has_no_silent_path():
+    x = torch.empty((1, 2, 4, 4), device="meta")
+    w = torch.empty((3, 2, 3, 3), device="meta")
+    s = torch.empty((1, 2), device="meta")
+    noise = torch.empty((4, 4), device="meta")
+    b = torch.empty((3,), device="meta")
+    before = modconv.launch_fwd.launches
+    with pytest.raises(ValueError, match="device"):
+        modconv.fused_modulated_layer(x, w, s, noise, b)
+    assert modconv.launch_fwd.launches == before
+
+
 def test_chip_smoke_fails_without_cuda():
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
                           cwd=ROOT, capture_output=True, text=True,
@@ -242,3 +283,44 @@ def test_downsample_kernel_matches_plain_on_cuda():
     assert upsample2d_kernel.launches == before_up + 1
     torch.testing.assert_close(dx, upsample2d_plain(g, taps[::-1]), rtol=0,
                                atol=chip_smoke.KERNEL_TOL)
+
+
+@pytest.mark.cuda
+def test_modconv_kernels_match_plain_on_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stylemc_torch.bench.fused_layer_ab import CLAMP, GAIN, make_inputs
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mc = modconv
+    for case, n, ci, co, h, w, scale in chip_smoke.MODCONV_EXTRA + [
+            ("b32", 4, 512, 512, 32, 32, 1.0)]:
+        inp = make_inputs(n, ci, co, h, w, "cuda", seed=3)
+        x, wt, s, noise, b = (inp[k] for k in ("x", "w", "s", "noise", "b"))
+        x = x * scale
+        d, _ = mc.dcoefs(wt, s)
+        y_p = mc.fused_layer_fwd_plain(x, wt, s, d, noise, b, GAIN, CLAMP)
+        y_k = mc.launch_fwd(x, wt, s, d, noise, b, GAIN, CLAMP)
+        scale_y = float(mc.fused_layer_fwd_plain(x, wt, s, d, noise, b, GAIN,
+                                                 None).abs().max())
+        assert float((y_k - y_p).abs().max()) <= \
+            chip_smoke.MODCONV_FWD_TOL * max(1.0, scale_y), case
+        dy = torch.randn_like(y_p)
+        got = mc.launch_bwd_data(dy, y_p, x, wt, s, d, noise, b, GAIN, CLAMP)
+        want = mc.fused_layer_bwd_data_plain(dy, y_p, x, wt, s, d, noise, b,
+                                             GAIN, CLAMP)
+        got += (mc.launch_bwd_weight(dy, y_p, x, s, d, GAIN, CLAMP),)
+        want += (mc.fused_layer_bwd_weight_plain(dy, y_p, x, s, d, GAIN,
+                                                 CLAMP),)
+        for g, p in zip(got, want):
+            assert float((g - p).norm() / p.norm()) <= \
+                chip_smoke.MODCONV_REL_L2, case
+    # autograd through the Function: B3, B4 and B5 once each
+    counters = [mc.launch_fwd, mc.launch_bwd_data, mc.launch_bwd_weight]
+    before = [c.launches for c in counters]
+    leaves = [t.clone().requires_grad_(True) for t in (x, wt, s, b)]
+    y = mc.fused_modulated_layer(leaves[0], leaves[1], leaves[2], noise,
+                                 leaves[3], gain=GAIN, clamp=CLAMP)
+    torch.autograd.grad(y, leaves, torch.randn_like(y))
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1, 1]
