@@ -30,13 +30,17 @@ script exits non-zero:
           clamp-binding case (x·600; there the B3 gate scales with the
           pre-clamp values, and float64 shows each side's error): B3 max
           |err| <= 2e-5·max(1, max|y|), each B4/B5 output relative L2 <=
-          1e-5; kernel, plain, library-call (unfused forward, its backward
-          to x and s, torch.nn.grad.conv2d_weight) and bound times
+          1e-5; B5 also at ragged tilings (MODCONV_DW_RAGGED); kernel,
+          plain, library-call (unfused forward, its backward to x and s,
+          torch.nn.grad.conv2d_weight) and bound times (3xTF32 on the
+          tensor cores, and in fp32 FMAs beside it)
   modconv_grad  gradients of fused_modulated_layer (x, w, s, bias) on the
           card against autograd through the plain forward in float64
           (relative L2 <= 1e-5; the fp32 plain forward's own errors are
           recorded beside them), the cotangent zeroed where the forwards
           take other branches of lrelu/clamp; B3/B4/B5 launched once each
+  mma_rate  the tensor cores' TF32 rate through mma.sync (the ceiling of
+          B5's instruction; stylemc_torch.bench.mma_rate)
   ab      stylemc_torch.bench.fused_layer_ab: fused against unfused at each
           conv1, forward at batch 4 and 16, fwd+bwd(x, s) and fwd+bwd(+w) at
           batch 4; per layer and summed per mode; each mode's launches held
@@ -89,9 +93,14 @@ import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 without tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 without tensor
+# cores, dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+# TF32 products per fp32-accurate product (3xTF32: small·big, big·small,
+# big·big)
+TF32_PASSES = 3
 KERNEL_TOL = 1e-5
 CHAIN_SHAPES = [(16, 3, h, h) for h in (4, 8, 16, 32, 64, 128)]
 EXTRA_SHAPES = [(1, 3, 512, 512), (2, 5, 6, 10)]
@@ -375,13 +384,25 @@ MODCONV_REL_L2 = 1e-5
 # the clamp binds (x·600), beside the full-width conv1 shapes
 MODCONV_EXTRA = [("odd", 3, 16, 8, 24, 20, 1.0),
                  ("clamp", 4, 512, 512, 16, 16, 600.0)]
+# B5 alone at the edges of its tiling, beside the odd shape (CO 8 < one
+# fragment's 16 rows, W 20): (name, batch, C_in, C_out, H, W, x not 16-byte
+# aligned). CI and CO not multiples of the 32 x 64 block tile; a 4x4 plane;
+# W % 4 != 0 and a misaligned x, both on the kernel's 4-byte copies.
+MODCONV_DW_RAGGED = [("ci40_co72", 2, 40, 72, 12, 12, False),
+                     ("plane4_c96", 3, 96, 80, 4, 4, False),
+                     ("w13", 2, 24, 16, 9, 13, False),
+                     ("x_offset", 2, 32, 64, 8, 16, True)]
 
 
 def modconv_bound(name, n, ci, co, h, w):
-    """(ms, 'bytes' | 'operations', flop): the least time an H100 takes for
-    kernel `name` at these shapes — its 3x3 contraction's flops (2 per
-    multiply-add) at the fp32 rate, against each input read once and each
-    output written once (4 B per element) at the HBM rate."""
+    """The least time an H100 takes for kernel `name` at these shapes:
+    `bound_ms`, the larger of its bytes (each input read once and each
+    output written once, 4 B an element, at the HBM rate) and its 3x3
+    contraction's flops (2 per multiply-add, `flop`) done in 3xTF32 on the
+    tensor cores (three TF32 products per product at the TF32 rate, which
+    keeps fp32's accuracy); `bound_by` says which. Beside it
+    `fp32_fma_bound_ms`, the same work in fp32 FMAs (the CUDA cores), and
+    the two sides of the bound, `bytes_ms` and `ops_ms`."""
     hw = h * w
     flop = 2 * n * ci * co * 9 * hw
     elems = {
@@ -395,10 +416,13 @@ def modconv_bound(name, n, ci, co, h, w):
         "modconv_bwd_weight": 2 * n * co * hw + n * ci * hw + n * ci + n * co
         + 9 * ci * co,
     }[name]
-    t_bytes = 4 * elems / HBM_BYTES_PER_S
-    t_ops = flop / FP32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flop)
+    t_bytes = 4 * elems / HBM_BYTES_PER_S * 1e3
+    t_ops = TF32_PASSES * flop / TF32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flop": flop,
+            "fp32_fma_bound_ms": max(t_bytes, flop / FP32_FLOP_PER_S * 1e3),
+            "bytes_ms": t_bytes, "ops_ms": t_ops}
 
 
 def _rel_l2(a, b):
@@ -461,15 +485,13 @@ def phase_modconv(torch):
                     1.0, float(z_p.abs().max()))})
             row["gate"] = row["gate_unclamped_scale"]
         if timed:
-            bound_ms, bound_by, flop = modconv_bound("modconv_fwd", n, ci,
-                                                     co, h, w)
             row.update({
                 "kernel_ms": device_ms_for(fwd_k),
                 "plain_ms": device_ms_for(fwd_p),
                 "library_ms": device_ms_for(lambda: unfused_layer(
                     x, wt, s, noise, b)),
-                "bound_ms": bound_ms, "bound_by": bound_by, "flop": flop})
-            row["kernel_tflop_per_s"] = flop / row["kernel_ms"] / 1e9
+                **modconv_bound("modconv_fwd", n, ci, co, h, w)})
+            row["kernel_tflop_per_s"] = row["flop"] / row["kernel_ms"] / 1e9
         emit({"phase": "modconv", "kernel": "modconv_fwd", **row})
         if not err <= row["gate"]:
             raise AssertionError(f"modconv_fwd disagrees with its plain "
@@ -507,7 +529,8 @@ def phase_modconv(torch):
         got, want = dw_k(), dw_p()
         dw_row = {**shape, "max_rel_l2": _rel_l2(got, want),
                   "max_abs_err": float((got - want).abs().max()),
-                  "max_abs_dw": float(want.abs().max())}
+                  "max_abs_dw": float(want.abs().max()),
+                  "plan": _dw_plan(mc, n, ci, co, h, w)}
         del got, want
         if timed:
             xr = x.detach().requires_grad_(True)
@@ -520,13 +543,11 @@ def phase_modconv(torch):
                     (dw_row, "modconv_bwd_weight", dw_k, dw_p,
                      lambda: torch.nn.grad.conv2d_weight(
                          x_s, wt.shape, dz_d, padding=1))):
-                bound_ms, bound_by, flop = modconv_bound(name, n, ci, co, h, w)
                 r.update({"kernel_ms": device_ms_for(k_fn),
                           "plain_ms": device_ms_for(p_fn),
                           "library_ms": device_ms_for(lib),
-                          "bound_ms": bound_ms, "bound_by": bound_by,
-                          "flop": flop})
-                r["kernel_tflop_per_s"] = flop / r["kernel_ms"] / 1e9
+                          **modconv_bound(name, n, ci, co, h, w)})
+                r["kernel_tflop_per_s"] = r["flop"] / r["kernel_ms"] / 1e9
             del y_u, xr, sr
         dw_row["library_rel_l2"] = _rel_l2(torch.nn.grad.conv2d_weight(
             x_s, wt.shape, dz_d, padding=1), dw_p())
@@ -538,8 +559,51 @@ def phase_modconv(torch):
                                      f"version: {r}")
             rows[name].append(r)
         del dz_d, x_s
+    rows["modconv_bwd_weight"] += modconv_dw_ragged(torch)
     torch.cuda.empty_cache()
     return rows, phase_modconv_grad(torch)
+
+
+def _dw_plan(mc, n, ci, co, h, w):
+    plan = mc.bwd_weight_plan(n, ci, co, h, w, mc._sm_count(0))
+    return {"splits": plan.splits, "chunk_cols": plan.chunk_cols,
+            "blocks": plan.tiles_co * plan.tiles_ci * plan.splits,
+            "units": plan.units}
+
+
+def modconv_dw_ragged(torch):
+    """B5 against its plain version at `MODCONV_DW_RAGGED` (relative L2 <=
+    1e-5), one launch each."""
+    from stylemc_torch.bench.fused_layer_ab import CLAMP, GAIN, make_inputs
+    from stylemc_torch.ops.kernels import modconv as mc
+
+    rows = []
+    for case, n, ci, co, h, w, misaligned in MODCONV_DW_RAGGED:
+        inp = make_inputs(n, ci, co, h, w, "cuda", seed=5)
+        x, wt, s, noise, b = (inp[k] for k in ("x", "w", "s", "noise", "b"))
+        if misaligned:
+            x = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(
+                x).copy_(x)
+        d, _ = mc.dcoefs(wt, s)
+        y = mc.fused_layer_fwd_plain(x, wt, s, d, noise, b, GAIN, CLAMP)
+        dy = torch.randn(y.shape, generator=torch.Generator(
+            device="cuda").manual_seed(6), device="cuda")
+        before = mc.launch_bwd_weight.launches
+        got = mc.launch_bwd_weight(dy, y, x, s, d, GAIN, CLAMP)
+        want = mc.fused_layer_bwd_weight_plain(dy, y, x, s, d, GAIN, CLAMP)
+        row = {"case": case, "n": n, "ci": ci, "co": co, "h": h, "w": w,
+               "x_data_ptr_mod_16": x.data_ptr() % 16,
+               "max_rel_l2": _rel_l2(got, want),
+               "max_abs_err": float((got - want).abs().max()),
+               "plan": _dw_plan(mc, n, ci, co, h, w)}
+        emit({"phase": "modconv", "kernel": "modconv_bwd_weight", **row})
+        if mc.launch_bwd_weight.launches != before + 1:
+            raise AssertionError(f"modconv_bwd_weight {case}: not launched")
+        if not row["max_rel_l2"] <= MODCONV_REL_L2:
+            raise AssertionError(f"modconv_bwd_weight disagrees with its "
+                                 f"plain version: {row}")
+        rows.append(row)
+    return rows
 
 
 def phase_modconv_grad(torch):
@@ -724,6 +788,7 @@ def record_launches(paths, cfg, path, launches, synthesis_calls,
 def phase_serve(torch, net, direction, smi, paths):
     import numpy as np
 
+    from stylemc_torch.bench.timing import card_state
     from stylemc_torch.cli.serve import build_server
     from stylemc_torch.serve import BatchEditor
 
@@ -794,6 +859,7 @@ def phase_serve(torch, net, direction, smi, paths):
         for b in (16, 64):
             editor.edit_styles(styles[:b])
             times = []
+            before = card_state()
             for _ in range(3):
                 t0 = time.perf_counter()
                 out = editor.edit_styles(styles[:b], change_power=2.0)
@@ -801,7 +867,8 @@ def phase_serve(torch, net, direction, smi, paths):
                 assert out.shape == (b, res, res, 3)
             rates[str(b)] = {
                 "images_per_s": [b / t for t in times],
-                "median_images_per_s": b / statistics.median(times)}
+                "median_images_per_s": b / statistics.median(times),
+                "card_state": [before, card_state()]}
 
     _, launches = count_launches(throughput)
     record_launches(paths, editor.cfg, "throughput", launches,
@@ -1151,6 +1218,7 @@ def train_flop(cfg, batch):
 def phase_train(torch, net, smi, paths):
     import numpy as np
 
+    from stylemc_torch.bench.timing import card_state
     from stylemc_torch.io import load_generator
     from stylemc_torch.serve import BatchEditor
     from stylemc_torch.losses.id_loss import extract_feats
@@ -1183,10 +1251,12 @@ def phase_train(torch, net, smi, paths):
     record_launches(paths, cfg, "train_precompute", pre, chunks)
 
     torch.cuda.reset_peak_memory_stats()
+    state_before = card_state()
     (direction, info), total = count_launches(
         lambda: find_direction(gp, cfg, styles, clip, arc, fdc,
                                tokenizer=tok))
     peak = torch.cuda.max_memory_allocated()
+    states = [state_before, card_state()]
     steps = info["iterations"]
     record_launches(paths, cfg, "train", total, chunks + steps, steps)
     step_launches = {k: total[k] - pre[k] for k in total}
@@ -1216,7 +1286,7 @@ def phase_train(torch, net, smi, paths):
           "time_s": info["time"], "peak_mem_bytes": peak,
           "step_flop": flop, "step_flop_by_model": flop_by_model,
           "achieved_tflop_per_s": flop / steady / 1e9,
-          "loss_first_last": [hist[0], hist[-1]],
+          "loss_first_last": [hist[0], hist[-1]], "card_state": states,
           "launches": {"precompute": pre, "steps": step_launches},
           "checks": checks})
     if not all(checks.values()):
@@ -1388,10 +1458,23 @@ MODCONV_REPLACES = {
 }
 
 
-def modconv_entries(rows, paths, smi):
+def phase_mma_rate():
+    """The tensor cores' TF32 rate through mma.sync, the instruction B5 is
+    built on (`stylemc_torch.bench.mma_rate`): the ceiling its TFLOP/s are
+    read against."""
+    from stylemc_torch.bench.mma_rate import mma_sync_tf32_tflop_per_s
+
+    rate = mma_sync_tf32_tflop_per_s("cuda")
+    emit({"phase": "mma_rate", "mma_sync_tf32_tflop_per_s": rate,
+          "three_pass_tflop_per_s": rate / TF32_PASSES})
+    return rate
+
+
+def modconv_entries(rows, paths, smi, mma_rate):
     """The `kernels` line's B3/B4/B5 entries: times summed over the seven
     full-width conv1 shapes at batch 4 (one training step's conv1s, were
-    the generator wired to the kernels); B3's batch-16 sum beside it."""
+    the generator wired to the kernels); B3's batch-16 sum beside it; B5's
+    rate beside mma.sync's 3xTF32 ceiling."""
     entries = []
     for name in MODCONV_KERNELS:
         main_rows = [r for r in rows[name] if r["case"].startswith("b")
@@ -1412,7 +1495,10 @@ def modconv_entries(rows, paths, smi):
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": main_rows[0]["bound_by"],
+            # the side that bounds most of the summed time
+            "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+                r["bound_ms"] for r in main_rows if r["bound_by"] == by)),
+            "fp32_fma_bound_ms": total("fp32_fma_bound_ms"),
             "library_ms": total("library_ms"),
             "tflop_per_s": total("flop") / total("kernel_ms") / 1e9,
             "times_are": "sum over the seven FFHQ-256 conv1 shapes at batch "
@@ -1423,9 +1509,13 @@ def modconv_entries(rows, paths, smi):
         if name == "modconv_fwd":
             b16 = [r for r in rows[name] if r["n"] == 16]
             entry.update({f"batch16_{k}": total(k, b16) for k in (
-                "kernel_ms", "plain_ms", "bound_ms", "library_ms")})
+                "kernel_ms", "plain_ms", "bound_ms", "fp32_fma_bound_ms",
+                "library_ms")})
         else:
             entry["max_rel_l2"] = max(r["max_rel_l2"] for r in rows[name])
+        if name == "modconv_bwd_weight":
+            entry["mma_sync_3xtf32_ceiling_tflop_per_s"] = (
+                mma_rate / TF32_PASSES)
         entries.append(entry)
     return entries
 
@@ -1447,6 +1537,7 @@ def main() -> int:
     phase_grad(torch)
     # before any profiler trace, like the training phases
     modconv_rows, _ = phase_modconv(torch)
+    mma_rate = phase_mma_rate()
     paths = {}  # path → its launches, synthesis calls and backward passes
     phase_ab(torch, smi, paths)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1497,7 +1588,7 @@ def main() -> int:
                          "wrapper_event_ms CUDA events over back-to-back "
                          "wrapper calls (host cost included)",
             "card": smi})
-    kernels += modconv_entries(modconv_rows, paths, smi)
+    kernels += modconv_entries(modconv_rows, paths, smi, mma_rate)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

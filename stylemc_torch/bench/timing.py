@@ -19,6 +19,26 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
+CARD_STATE = ("clocks.sm", "clocks.max.sm", "power.draw", "temperature.gpu")
+
+
+def card_state() -> dict:
+    """The first card's SM clock and its maximum (MHz), power draw (W) and
+    temperature (C) as nvidia-smi reads them now. Read before and after a
+    timed window, they tell a card that ran slow from code that did."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=" + ",".join(CARD_STATE),
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    state = {}
+    for key, value in zip(CARD_STATE, out.strip().splitlines()[0].split(",")):
+        try:
+            state[key] = float(value)
+        except ValueError:
+            state[key] = value.strip()
+    return state
+
+
 def device_ms(fn, iters: int = 20) -> float:
     """Device time per call of `fn` (which must not synchronise): CUDA
     events around `iters` calls queued behind a sleep kernel, so the host's

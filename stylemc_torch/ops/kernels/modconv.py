@@ -12,6 +12,10 @@ weight needs a gradient, so a frozen generator (find_direction, serving)
 never pays for dW; the chain through d = rsqrt(s²·ΣW² + 1e-8) runs in plain
 torch outside the kernels, as in the JAX wrapper.
 
+B5 runs on the tensor cores in 3xTF32 (`fused_layer_bwd_weight_3xtf32`
+emulates its arithmetic for the tests) over the split that
+`bwd_weight_plan` lays out.
+
 `launch_fwd.launches`, `launch_bwd_data.launches` and
 `launch_bwd_weight.launches` count the calls of each kernel; B4 is two CUDA
 launches (the dz pass and the transposed convolution) and counts once.
@@ -22,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -41,8 +46,8 @@ _ARGTYPES = {
     "stylemc_modconv_fwd": [_P] * 7 + [_I] * 5 + [_F, _F, _I, _P],
     "stylemc_modconv_bwd_data": [_P] * 13 + [_I] * 5 + [_F, _F, _I, _P],
     "stylemc_modconv_bwd_data_tiles": [_I] * 2,
-    "stylemc_modconv_bwd_weight": [_P] * 6 + [_I] * 5 + [_F, _F, _I, _I, _P],
-    "stylemc_modconv_bwd_weight_splits": [_I] * 5,
+    "stylemc_modconv_bwd_weight": [_P] * 6 + [_I] * 5 + [_F, _F] + [_I] * 4
+    + [_P],
 }
 
 
@@ -120,6 +125,122 @@ def fused_layer_bwd_weight_plain(dy, y, x, styles, d, gain: float,
     return dw.reshape(co, ci, 3, 3)
 
 
+# ------------------------------------------ B5's arithmetic, emulated
+
+
+def _tf32_round(v: torch.Tensor) -> torch.Tensor:
+    # sign-magnitude bits: adding half of the 13 dropped bits' unit rounds
+    # the magnitude to nearest, ties away from zero
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of float32 `v` as B5 splits its operands:
+    big = cvt.rna.tf32.f32(v) (round to nearest, ties away from zero, to 10
+    mantissa bits) and small = cvt.rna.tf32.f32(v − big)."""
+    big = _tf32_round(v)
+    return big, _tf32_round(v - big)
+
+
+def fused_layer_bwd_weight_3xtf32(dy, y, x, styles, d, gain: float,
+                                  clamp: Optional[float], passes: int = 3):
+    """B5's function with B5's arithmetic (csrc/modconv_bwd_weight.cu), in
+    torch ops on float32: dz = dy·g(y) and the unfolded x split by
+    `tf32_split`, the products small·big, big·small and big·big summed in
+    float32 per sample (a product of two TF32 values is exact in float32),
+    then each sample's [CO, CI] sum scaled by d[n,co]·s[n,ci] and the
+    samples added. passes=1 keeps big·big alone: one TF32 pass. Tests use
+    it; no path of the port does. → [CO,CI,3,3]."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    n, co, h, wd = dy.shape
+    ci = x.shape[1]
+    a_big, a_small = tf32_split((dy * _act_grad(y, gain, clamp))
+                                .reshape(n, co, h * wd))
+    b_big, b_small = tf32_split(F.unfold(x, 3, padding=1))
+    pairs = [(a_big, b_big)] if passes == 1 else [
+        (a_small, b_big), (a_big, b_small), (a_big, b_big)]
+    per_n = sum(torch.einsum("nop,nkp->nok", a, b) for a, b in pairs)
+    scale = d[:, :, None] * styles.repeat_interleave(9, dim=1)[:, None, :]
+    return (per_n * scale).sum(dim=0).reshape(co, ci, 3, 3)
+
+
+# ------------------------------------------------------------ B5's split plan
+
+# B5's block tile and pixel chunk, as csrc/modconv_bwd_weight.cu fixes them
+BW_BLOCK_CO = 64
+BW_BLOCK_CI = 32
+BW_CHUNK_PIXELS = 128
+
+
+@dataclass(frozen=True)
+class BwdWeightPlan:
+    """How B5 divides dW among blocks. The grid is (CO tiles, CI tiles,
+    splits); the (n, pixel) reduction is cut into units, one (sample,
+    chunk_rows × chunk_cols pixel chunk) each, numbered n-major then chunk
+    row then chunk column, and split z sums units
+    [units·z // splits, units·(z+1) // splits) into partial z."""
+
+    n: int
+    ci: int
+    co: int
+    h: int
+    w: int
+    chunk_cols: int
+    splits: int
+
+    @property
+    def chunk_rows(self) -> int:
+        return BW_CHUNK_PIXELS // self.chunk_cols
+
+    @property
+    def tiles_co(self) -> int:
+        return -(-self.co // BW_BLOCK_CO)
+
+    @property
+    def tiles_ci(self) -> int:
+        return -(-self.ci // BW_BLOCK_CI)
+
+    @property
+    def chunk_grid(self) -> Tuple[int, int]:
+        """(rows, columns) of pixel chunks over one plane."""
+        return -(-self.h // self.chunk_rows), -(-self.w // self.chunk_cols)
+
+    @property
+    def units(self) -> int:
+        rows, cols = self.chunk_grid
+        return self.n * rows * cols
+
+    def split_range(self, z: int) -> Tuple[int, int]:
+        return (self.units * z // self.splits,
+                self.units * (z + 1) // self.splits)
+
+    def unit(self, u: int) -> Tuple[int, int, int]:
+        """(n, i0, j0): the sample and top-left pixel of unit u."""
+        rows, cols = self.chunk_grid
+        n, rc = divmod(u, rows * cols)
+        return n, (rc // cols) * self.chunk_rows, (rc % cols) * self.chunk_cols
+
+
+def bwd_weight_plan(n: int, ci: int, co: int, h: int, w: int,
+                    sms: int) -> BwdWeightPlan:
+    """B5's plan on a card with `sms` multiprocessors (one 256-thread block
+    fits on each): chunks of 8 rows x 16 columns (16 x 8 for planes at most
+    8 wide), and as
+    many splits as fill the SMs once beside the (CO, CI) tiles, at least 1
+    and at most one unit per split."""
+    cols = 8 if w <= 8 else 16
+    plan = BwdWeightPlan(n, ci, co, h, w, cols, 1)
+    splits = max(1, min(sms // (plan.tiles_co * plan.tiles_ci), plan.units))
+    return BwdWeightPlan(n, ci, co, h, w, cols, splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 # ------------------------------------------------------------------- kernels
 
 
@@ -193,19 +314,18 @@ def launch_bwd_data(dy, y, x, w, styles, d, noise, bias, gain: float,
 def launch_bwd_weight(dy, y, x, styles, d, gain: float,
                       clamp: Optional[float]) -> torch.Tensor:
     """B5 on contiguous float32 CUDA tensors → dW's direct term
-    [CO,CI,3,3], the sum of the kernel's split partials; counts the launch
-    on `launch_bwd_weight.launches`."""
+    [CO,CI,3,3], the sum of the kernel's split partials (`bwd_weight_plan`);
+    counts the launch on `launch_bwd_weight.launches`."""
     n, co, h, wd = dy.shape
     ci = x.shape[1]
-    lib = _library("modconv_bwd_weight")
-    with torch.cuda.device(x.device):
-        splits = lib.stylemc_modconv_bwd_weight_splits(n, ci, co, h, wd)
-    if splits < 0:
-        raise RuntimeError(f"modconv_bwd_weight: CUDA error {-splits}")
-    partial = torch.empty((splits, co, ci, 9), dtype=x.dtype, device=x.device)
+    plan = bwd_weight_plan(n, ci, co, h, wd, _sm_count(x.device.index))
+    # 16-byte copies need whole 4-pixel groups and aligned rows
+    vec = wd % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (dy, y, x))
+    partial = torch.empty((plan.splits, co, ci, 9), dtype=x.dtype,
+                          device=x.device)
     _run("modconv_bwd_weight", "stylemc_modconv_bwd_weight", x.device, dy, y,
          x, styles, d, partial, n, ci, co, h, wd, gain, *_clamp_args(clamp),
-         splits)
+         plan.splits, plan.chunk_cols, int(vec))
     launch_bwd_weight.launches += 1
     return partial.sum(dim=0).reshape(co, ci, 3, 3)
 
@@ -294,8 +414,9 @@ def fused_modulated_layer(x, w, styles, noise, bias,
     port runs any plane size (4x4 included) and `force` has no effect.
 
     Types: float32 only; a bf16 x raises TypeError. `mxu` is "default" or
-    "highest" and both compute in fp32 FMAs here. In JAX, "default" means
-    bf16 multiplies on the TPU's MXU; a tensor-core mode is later work.
+    "highest" and both keep fp32 accuracy here: B3 and B4 in fp32 FMAs, B5
+    on the tensor cores in 3xTF32. In JAX, "default" means bf16 multiplies
+    on the TPU's MXU; a bf16 policy is later work.
     """
     if mxu not in ("default", "highest"):
         raise ValueError(f"mxu must be 'default' or 'highest', got {mxu!r}")

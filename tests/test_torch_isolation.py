@@ -8,7 +8,8 @@
   with nvcc's output.
 * On a machine with a card, B1 is held against its plain version and its
   gradient goes through B2, and B3/B4/B5 (the fused synthesis layer) are
-  held against theirs (marked `cuda`; skip here).
+  held against theirs, B5 also at ragged tilings (marked `cuda`; skip
+  here).
 """
 
 import os
@@ -188,14 +189,27 @@ def test_chip_smoke_yardstick_and_bound():
 
 
 def test_chip_smoke_modconv_bound_and_yardstick():
-    # FFHQ-256's 256² conv1 at batch 4: 77.3 GFLOP against 0.27 GB
-    ms, by, flop = chip_smoke.modconv_bound("modconv_fwd", 4, 128, 128, 256,
-                                            256)
-    assert by == "operations" and flop == 2 * 4 * 128 * 128 * 9 * 256 * 256
-    assert abs(ms - flop / 67e12 * 1e3) < 1e-12
+    from stylemc_torch.bench.fused_layer_ab import layer_shapes
+
+    # FFHQ-256's 256² conv1 at batch 4: 77.3 GFLOP against 0.27 GB, done
+    # in 3xTF32 on the tensor cores (three TF32 products per product at
+    # 495 TFLOP/s), the fp32 FMA time (67 TFLOP/s) beside it
+    b = chip_smoke.modconv_bound("modconv_fwd", 4, 128, 128, 256, 256)
+    flop = 2 * 4 * 128 * 128 * 9 * 256 * 256
+    assert b["bound_by"] == "operations" and b["flop"] == flop
+    assert abs(b["bound_ms"] - 3 * flop / 495e12 * 1e3) < 1e-12
+    assert abs(b["fp32_fma_bound_ms"] - flop / 67e12 * 1e3) < 1e-12
+    # B5 over the seven conv1 layers: 1.5612 ms of operations
+    ops = sum(chip_smoke.modconv_bound("modconv_bwd_weight", 4, c, c, r,
+                                       r)["ops_ms"]
+              for c, r in layer_shapes())
+    assert abs(ops - 1.5612) < 1e-4
     for name in chip_smoke.MODCONV_KERNELS:
-        assert chip_smoke.modconv_bound(name, 4, 512, 512, 4, 4)[1] == \
-            "operations"
+        # at 4x4 the [512, 512, 3, 3] weight (9.4 MB) outweighs 0.3 GFLOP
+        assert chip_smoke.modconv_bound(name, 4, 512, 512, 4, 4)[
+            "bound_by"] == "bytes"
+        assert chip_smoke.modconv_bound(name, 4, 512, 512, 8, 8)[
+            "bound_by"] == "operations"
     # B5's library yardstick computes the plain version's function
     rs = np.random.RandomState(0)
     x, dy, y = (torch.from_numpy(rs.randn(*shape).astype(np.float32))
@@ -316,6 +330,27 @@ def test_modconv_kernels_match_plain_on_cuda():
         for g, p in zip(got, want):
             assert float((g - p).norm() / p.norm()) <= \
                 chip_smoke.MODCONV_REL_L2, case
+    # B5 where its tiling is ragged: CO 8 < one fragment's 16 rows (the odd
+    # shape above), CI and CO not multiples of the block tile, a 4x4 plane,
+    # and W % 4 != 0 and a misaligned x (the kernel's 4-byte copies)
+    for case, n, ci, co, h, w, misaligned in chip_smoke.MODCONV_DW_RAGGED:
+        inp = make_inputs(n, ci, co, h, w, "cuda", seed=4)
+        xr, wr, sr = inp["x"], inp["w"], inp["s"]
+        if misaligned:
+            xr = torch.empty(xr.numel() + 1, device="cuda")[1:].view_as(
+                xr).copy_(xr)
+            assert xr.data_ptr() % 16 != 0
+        dr, _ = mc.dcoefs(wr, sr)
+        yr = mc.fused_layer_fwd_plain(xr, wr, sr, dr, inp["noise"], inp["b"],
+                                      GAIN, CLAMP)
+        dyr = torch.randn_like(yr)
+        before = mc.launch_bwd_weight.launches
+        got = mc.launch_bwd_weight(dyr, yr, xr, sr, dr, GAIN, CLAMP)
+        assert mc.launch_bwd_weight.launches == before + 1
+        want = mc.fused_layer_bwd_weight_plain(dyr, yr, xr, sr, dr, GAIN,
+                                               CLAMP)
+        assert float((got - want).norm() / want.norm()) <= \
+            chip_smoke.MODCONV_REL_L2, case
     # autograd through the Function: B3, B4 and B5 once each
     counters = [mc.launch_fwd, mc.launch_bwd_data, mc.launch_bwd_weight]
     before = [c.launches for c in counters]
