@@ -30,7 +30,11 @@ script exits non-zero:
           clamp-binding case (x·600; there the B3 gate scales with the
           pre-clamp values, and float64 shows each side's error): B3 max
           |err| <= 2e-5·max(1, max|y|), each B4/B5 output relative L2 <=
-          1e-5; B5 also at ragged tilings (MODCONV_DW_RAGGED); kernel,
+          1e-5; B3 and B5 also at ragged tilings (MODCONV_FWD_RAGGED,
+          MODCONV_DW_RAGGED), one counted call each, with their split
+          plans; a bf16-x fused_modulated_layer call (y in bf16, one B3
+          launch, within one bf16 step of the plain version beside B3's
+          fp32 gate); kernel,
           plain, library-call (unfused forward, its backward to x and s,
           torch.nn.grad.conv2d_weight) and bound times (3xTF32 on the
           tensor cores, and in fp32 FMAs beside it)
@@ -40,7 +44,8 @@ script exits non-zero:
           recorded beside them), the cotangent zeroed where the forwards
           take other branches of lrelu/clamp; B3/B4/B5 launched once each
   mma_rate  the tensor cores' TF32 rate through mma.sync (the ceiling of
-          B5's instruction; stylemc_torch.bench.mma_rate)
+          B3's and B5's instruction; stylemc_torch.bench.mma_rate); then
+          B3's TFLOP/s and plan per timed shape beside it (modconv_fwd_rate)
   ab      stylemc_torch.bench.fused_layer_ab: fused against unfused at each
           conv1, forward at batch 4 and 16, fwd+bwd(x, s) and fwd+bwd(+w) at
           batch 4; per layer and summed per mode; each mode's launches held
@@ -392,6 +397,13 @@ MODCONV_DW_RAGGED = [("ci40_co72", 2, 40, 72, 12, 12, False),
                      ("plane4_c96", 3, 96, 80, 4, 4, False),
                      ("w13", 2, 24, 16, 9, 13, False),
                      ("x_offset", 2, 32, 64, 8, 16, True)]
+# B3 alone at the edges of its tiling, the same kinds: CI and CO not
+# multiples of its 8-channel chunk and 64-channel tile, a 4x4 plane with C
+# 96 (CI split), W % 4 != 0 and a misaligned x (its 4-byte copies)
+MODCONV_FWD_RAGGED = [("ci40_co72", 2, 40, 72, 12, 12, False),
+                      ("plane4_c96", 3, 96, 96, 4, 4, False),
+                      ("w13", 2, 24, 16, 9, 13, False),
+                      ("x_offset", 2, 32, 64, 8, 16, True)]
 
 
 def modconv_bound(name, n, ci, co, h, w):
@@ -464,7 +476,8 @@ def phase_modconv(torch):
         ymax = float(y_p.abs().max())
         err = float((y_k - y_p).abs().max())
         row = {**shape, "max_abs_err": err, "max_abs_y": ymax,
-               "gate_max_abs_y": MODCONV_FWD_TOL * max(1.0, ymax)}
+               "gate_max_abs_y": MODCONV_FWD_TOL * max(1.0, ymax),
+               "plan": _fwd_plan(mc, n, ci, co, h, w)}
         row["gate"] = row["gate_max_abs_y"]
         if scale != 1.0:
             # where the clamp binds, the sums run far past ±256: the error
@@ -559,7 +572,9 @@ def phase_modconv(torch):
                                      f"version: {r}")
             rows[name].append(r)
         del dz_d, x_s
+    rows["modconv_fwd"] += modconv_fwd_ragged(torch)
     rows["modconv_bwd_weight"] += modconv_dw_ragged(torch)
+    modconv_bf16(torch)
     torch.cuda.empty_cache()
     return rows, phase_modconv_grad(torch)
 
@@ -569,6 +584,92 @@ def _dw_plan(mc, n, ci, co, h, w):
     return {"splits": plan.splits, "chunk_cols": plan.chunk_cols,
             "blocks": plan.tiles_co * plan.tiles_ci * plan.splits,
             "units": plan.units}
+
+
+def _fwd_plan(mc, n, ci, co, h, w):
+    plan = mc.fwd_plan(n, ci, co, h, w, mc._sm_count(0))
+    return {"splits": plan.splits, "chunk_cols": plan.chunk_cols,
+            "blocks": plan.blocks, "units": plan.units}
+
+
+def _fwd_gate(mc, x, wt, s, d, noise, b, y_p):
+    """B3's gate: 2e-5·max(1, max|y|), max|y| taken before the clamp."""
+    from stylemc_torch.bench.fused_layer_ab import GAIN
+
+    z = mc.fused_layer_fwd_plain(x, wt, s, d, noise, b, GAIN, None)
+    return MODCONV_FWD_TOL * max(1.0, float(y_p.abs().max()),
+                                 float(z.abs().max()))
+
+
+def modconv_fwd_ragged(torch):
+    """B3 against its plain version at `MODCONV_FWD_RAGGED` under its gate,
+    one counted call each."""
+    from stylemc_torch.bench.fused_layer_ab import CLAMP, GAIN, make_inputs
+    from stylemc_torch.ops.kernels import modconv as mc
+
+    rows = []
+    for case, n, ci, co, h, w, misaligned in MODCONV_FWD_RAGGED:
+        inp = make_inputs(n, ci, co, h, w, "cuda", seed=8)
+        x, wt, s, noise, b = (inp[k] for k in ("x", "w", "s", "noise", "b"))
+        if misaligned:
+            x = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(
+                x).copy_(x)
+        d, _ = mc.dcoefs(wt, s)
+        before = mc.launch_fwd.launches
+        got = mc.launch_fwd(x, wt, s, d, noise, b, GAIN, CLAMP)
+        launched = mc.launch_fwd.launches - before
+        want = mc.fused_layer_fwd_plain(x, wt, s, d, noise, b, GAIN, CLAMP)
+        row = {"case": case, "n": n, "ci": ci, "co": co, "h": h, "w": w,
+               "x_data_ptr_mod_16": x.data_ptr() % 16,
+               "max_abs_err": float((got - want).abs().max()),
+               "gate": _fwd_gate(mc, x, wt, s, d, noise, b, want),
+               "launches": launched, "plan": _fwd_plan(mc, n, ci, co, h, w)}
+        emit({"phase": "modconv", "kernel": "modconv_fwd", **row})
+        if launched != 1:
+            raise AssertionError(f"modconv_fwd {case}: {launched} launches")
+        if not row["max_abs_err"] <= row["gate"]:
+            raise AssertionError(f"modconv_fwd disagrees with its plain "
+                                 f"version: {row}")
+        rows.append(row)
+    return rows
+
+
+def modconv_bf16(torch):
+    """`fused_modulated_layer` with a bf16 x on the card: y in bf16, B3
+    launched once, y within one bf16 step of the plain version (in fp32)
+    elementwise, beside B3's fp32 gate: near 0 a bf16 step is far below
+    the fp32 sums' own error."""
+    from stylemc_torch.bench.fused_layer_ab import CLAMP, GAIN, make_inputs
+    from stylemc_torch.ops.kernels import modconv as mc
+
+    n, c, res = 4, 512, 16
+    inp = make_inputs(n, c, c, res, res, "cuda", seed=9)
+    x, wt, s, noise, b = (inp[k] for k in ("x", "w", "s", "noise", "b"))
+    xb = x.bfloat16()
+    y, launches = count_launches(lambda: mc.fused_modulated_layer(
+        xb, wt, s, noise, b, gain=GAIN, clamp=CLAMP))
+    d, _ = mc.dcoefs(wt, s)
+    want = mc.fused_layer_fwd_plain(xb.float(), wt, s, d, noise, b, GAIN,
+                                    CLAMP)
+    step = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(2.0 ** -126))) - 7)
+    gate = _fwd_gate(mc, xb.float(), wt, s, d, noise, b, want)
+    # bf16 steps past the fp32 gate
+    steps = ((y.float() - want).abs() - gate).clamp_min(0.0) / step
+    row = {"case": f"bf16_x_b{res}", "n": n, "ci": c, "co": c, "h": res,
+           "w": res, "dtype": str(y.dtype).replace("torch.", ""),
+           "max_abs_err": float((y.float() - want).abs().max()),
+           "fp32_gate": gate, "max_bf16_steps_past_gate": float(steps.max()),
+           "elements_off_by_one_step": int((steps > 0.5).sum()),
+           "launches": launches}
+    emit({"phase": "modconv", "kernel": "modconv_fwd", **row})
+    if y.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 x gave y in {y.dtype}")
+    if launches["modconv_fwd"] != 1 or any(
+            v for k, v in launches.items() if k != "modconv_fwd"):
+        raise AssertionError(f"bf16 fused layer: launches {launches}")
+    if not row["max_bf16_steps_past_gate"] <= 1.0:
+        raise AssertionError(f"bf16 fused layer off the plain version: {row}")
 
 
 def modconv_dw_ragged(torch):
@@ -1459,9 +1560,9 @@ MODCONV_REPLACES = {
 
 
 def phase_mma_rate():
-    """The tensor cores' TF32 rate through mma.sync, the instruction B5 is
-    built on (`stylemc_torch.bench.mma_rate`): the ceiling its TFLOP/s are
-    read against."""
+    """The tensor cores' TF32 rate through mma.sync, the instruction B3 and
+    B5 are built on (`stylemc_torch.bench.mma_rate`): the ceiling their
+    TFLOP/s are read against."""
     from stylemc_torch.bench.mma_rate import mma_sync_tf32_tflop_per_s
 
     rate = mma_sync_tf32_tflop_per_s("cuda")
@@ -1470,11 +1571,24 @@ def phase_mma_rate():
     return rate
 
 
+def fwd_rates(rows, mma_rate):
+    """B3's TFLOP/s and split plan per timed shape beside `mma.sync`'s
+    3xTF32 ceiling (one line each, after the mma_rate phase)."""
+    ceiling = mma_rate / TF32_PASSES
+    for r in rows:
+        if "kernel_tflop_per_s" in r:
+            emit({"phase": "modconv_fwd_rate", "case": r["case"],
+                  "n": r["n"], "h": r["h"], "w": r["w"], "plan": r["plan"],
+                  "kernel_tflop_per_s": r["kernel_tflop_per_s"],
+                  "mma_sync_3xtf32_ceiling_tflop_per_s": ceiling,
+                  "share_of_ceiling": r["kernel_tflop_per_s"] / ceiling})
+
+
 def modconv_entries(rows, paths, smi, mma_rate):
     """The `kernels` line's B3/B4/B5 entries: times summed over the seven
     full-width conv1 shapes at batch 4 (one training step's conv1s, were
-    the generator wired to the kernels); B3's batch-16 sum beside it; B5's
-    rate beside mma.sync's 3xTF32 ceiling."""
+    the generator wired to the kernels); B3's batch-16 sum beside it; B3's
+    and B5's rates beside mma.sync's 3xTF32 ceiling."""
     entries = []
     for name in MODCONV_KERNELS:
         main_rows = [r for r in rows[name] if r["case"].startswith("b")
@@ -1513,7 +1627,7 @@ def modconv_entries(rows, paths, smi, mma_rate):
                 "library_ms")})
         else:
             entry["max_rel_l2"] = max(r["max_rel_l2"] for r in rows[name])
-        if name == "modconv_bwd_weight":
+        if name != "modconv_bwd_data":
             entry["mma_sync_3xtf32_ceiling_tflop_per_s"] = (
                 mma_rate / TF32_PASSES)
         entries.append(entry)
@@ -1538,6 +1652,7 @@ def main() -> int:
     # before any profiler trace, like the training phases
     modconv_rows, _ = phase_modconv(torch)
     mma_rate = phase_mma_rate()
+    fwd_rates(modconv_rows["modconv_fwd"], mma_rate)
     paths = {}  # path → its launches, synthesis calls and backward passes
     phase_ab(torch, smi, paths)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

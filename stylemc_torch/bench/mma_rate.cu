@@ -1,8 +1,9 @@
 // The tensor cores' rate through mma.sync.m16n8k8 TF32, the instruction
-// that B5 (ops/kernels/csrc/modconv_bwd_weight.cu) is built on: each warp
-// keeps 16 independent accumulators and issues `iters` rounds of 16 MMAs
-// on operands held in registers, so nothing but the tensor cores bounds
-// it. A yardstick for B5's TFLOP/s; no path of the port runs it.
+// that B3 and B5 (ops/kernels/csrc/modconv_fwd.cu, modconv_bwd_weight.cu)
+// are built on: each warp keeps 16 independent accumulators and issues
+// `iters` rounds of 16 MMAs on operands held in registers, so nothing but
+// the tensor cores bounds it. A yardstick for B3's and B5's TFLOP/s; no
+// path of the port runs it.
 
 #include <cstdint>
 

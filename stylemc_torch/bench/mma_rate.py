@@ -1,6 +1,6 @@
 """The tensor cores' TF32 rate through `mma.sync` on one CUDA card: the
-ceiling of the instruction that B5 is built on, against which its TFLOP/s
-are read (3xTF32 spends three TF32 products on each product).
+ceiling of the instruction that B3 and B5 are built on, against which their
+TFLOP/s are read (3xTF32 spends three TF32 products on each product).
 
     python -m stylemc_torch.bench.mma_rate
 

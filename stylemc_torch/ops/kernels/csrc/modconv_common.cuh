@@ -1,7 +1,8 @@
-// Shared by the fused synthesis layer's kernels (modconv_fwd.cu,
-// modconv_bwd_data.cu, modconv_bwd_weight.cu): the 3x3 tile convolution on
-// CUDA cores that B3's forward and B4's transposed convolution both run, and
-// the lrelu/clamp gradient rule.
+// Shared by the fused synthesis layer's backward kernels
+// (modconv_bwd_data.cu, modconv_bwd_weight.cu): the 3x3 tile convolution on
+// CUDA cores that B4's transposed convolution runs, and the lrelu/clamp
+// gradient rule. (B3, modconv_fwd.cu, runs on the tensor cores and no longer
+// includes this header.)
 //
 // conv3x3_mainloop computes, for one sample n, one tile of TILE_M output
 // channels and one TILE_H x TILE_W tile of the plane (pad 1, stride 1),

@@ -12,13 +12,16 @@ weight needs a gradient, so a frozen generator (find_direction, serving)
 never pays for dW; the chain through d = rsqrt(s²·ΣW² + 1e-8) runs in plain
 torch outside the kernels, as in the JAX wrapper.
 
-B5 runs on the tensor cores in 3xTF32 (`fused_layer_bwd_weight_3xtf32`
-emulates its arithmetic for the tests) over the split that
-`bwd_weight_plan` lays out.
+B3 and B5 run on the tensor cores in 3xTF32 (`fused_layer_fwd_3xtf32` and
+`fused_layer_bwd_weight_3xtf32` emulate their arithmetic for the tests)
+over the splits that `fwd_plan` and `bwd_weight_plan` lay out; B4 runs on
+the CUDA cores.
 
 `launch_fwd.launches`, `launch_bwd_data.launches` and
-`launch_bwd_weight.launches` count the calls of each kernel; B4 is two CUDA
-launches (the dz pass and the transposed convolution) and counts once.
+`launch_bwd_weight.launches` count the calls of each kernel; B3 is up to
+three CUDA launches (the weight split, the main kernel, the reduction of
+its CI splits) and B4 two (the dz pass and the transposed convolution),
+each counted once.
 """
 
 from __future__ import annotations
@@ -38,12 +41,19 @@ LRELU_SLOPE = 0.2
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("modconv_fwd", "modconv_bwd_data", "modconv_bwd_weight")
-SOURCES = {name: (_CSRC / f"{name}.cu", _CSRC / "modconv_common.cuh")
-           for name in KERNELS}
+# each library's .cu file and the headers it includes (hashed, not compiled)
+SOURCES = {
+    "modconv_fwd": (_CSRC / "modconv_fwd.cu", _CSRC / "modconv_tc.cuh"),
+    "modconv_bwd_data": (_CSRC / "modconv_bwd_data.cu",
+                         _CSRC / "modconv_common.cuh"),
+    "modconv_bwd_weight": (_CSRC / "modconv_bwd_weight.cu",
+                           _CSRC / "modconv_common.cuh",
+                           _CSRC / "modconv_tc.cuh"),
+}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    "stylemc_modconv_fwd": [_P] * 7 + [_I] * 5 + [_F, _F, _I, _P],
+    "stylemc_modconv_fwd": [_P] * 9 + [_I] * 5 + [_F, _F] + [_I] * 4 + [_P],
     "stylemc_modconv_bwd_data": [_P] * 13 + [_I] * 5 + [_F, _F, _I, _P],
     "stylemc_modconv_bwd_data_tiles": [_I] * 2,
     "stylemc_modconv_bwd_weight": [_P] * 6 + [_I] * 5 + [_F, _F] + [_I] * 4
@@ -125,7 +135,7 @@ def fused_layer_bwd_weight_plain(dy, y, x, styles, d, gain: float,
     return dw.reshape(co, ci, 3, 3)
 
 
-# ------------------------------------------ B5's arithmetic, emulated
+# ---------------------------- the tensor-core kernels' arithmetic, emulated
 
 
 def _tf32_round(v: torch.Tensor) -> torch.Tensor:
@@ -136,7 +146,7 @@ def _tf32_round(v: torch.Tensor) -> torch.Tensor:
 
 
 def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(big, small) of float32 `v` as B5 splits its operands:
+    """(big, small) of float32 `v` as B3 and B5 split their operands:
     big = cvt.rna.tf32.f32(v) (round to nearest, ties away from zero, to 10
     mantissa bits) and small = cvt.rna.tf32.f32(v − big)."""
     big = _tf32_round(v)
@@ -164,6 +174,127 @@ def fused_layer_bwd_weight_3xtf32(dy, y, x, styles, d, gain: float,
     per_n = sum(torch.einsum("nop,nkp->nok", a, b) for a, b in pairs)
     scale = d[:, :, None] * styles.repeat_interleave(9, dim=1)[:, None, :]
     return (per_n * scale).sum(dim=0).reshape(co, ci, 3, 3)
+
+
+# B3's chunk of input channels, as csrc/modconv_fwd.cu fixes it
+FW_KC = 8
+
+
+def fused_layer_fwd_3xtf32(x, w, styles, d, noise, bias, gain: float,
+                           clamp: Optional[float], passes: int = 3):
+    """B3's function with B3's arithmetic (csrc/modconv_fwd.cu), in torch
+    ops on float32: x·s and w split by `tf32_split`, the products
+    small·big, big·small and big·big of each chunk of FW_KC input channels
+    (all nine taps) summed in float32, the chunks' sums added in order,
+    then d, noise, bias, lrelu·gain and the clamp. passes=1 keeps big·big
+    alone: one TF32 pass. Tests use it; no path of the port does.
+    → y [N,CO,H,W]."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    x_big, x_small = tf32_split(x * styles[:, :, None, None])
+    w_big, w_small = tf32_split(w)
+    pairs = [(w_big, x_big)] if passes == 1 else [
+        (w_small, x_big), (w_big, x_small), (w_big, x_big)]
+    acc = None
+    for c0 in range(0, x.shape[1], FW_KC):
+        part = sum(F.conv2d(b[:, c0:c0 + FW_KC], a[:, c0:c0 + FW_KC],
+                            padding=1) for a, b in pairs)
+        acc = part if acc is None else acc + part
+    z1 = acc * d[:, :, None, None] + noise + bias[:, None, None]
+    y = torch.where(z1 >= 0, z1, z1 * LRELU_SLOPE) * gain
+    return y if clamp is None else y.clamp(-clamp, clamp)
+
+
+# ------------------------------------------------------------ B3's split plan
+
+# B3's block tile, the rows of its pixel chunk and the pairs of a row of
+# its split weight (the tile's 64 output channels and 4 of padding), as
+# csrc/modconv_fwd.cu fixes them
+FW_BLOCK_CO = 64
+FW_CHUNK_ROWS = 16
+FW_W_ROW = 68
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """How B3 divides y among blocks. The grid is (pixel chunks, CO tiles,
+    splits): chunk u is one (sample, chunk_rows × chunk_cols pixel chunk),
+    numbered n-major then chunk row then chunk column; the input channels
+    are cut into chunks of FW_KC, and split z sums chunks
+    [chunks·z // splits, chunks·(z+1) // splits) into partial z. With one
+    split the kernel writes y; with more, a reduction sums the partials in
+    split order."""
+
+    n: int
+    ci: int
+    co: int
+    h: int
+    w: int
+    chunk_cols: int
+    splits: int
+
+    @property
+    def chunk_rows(self) -> int:
+        return FW_CHUNK_ROWS
+
+    @property
+    def tiles_co(self) -> int:
+        return -(-self.co // FW_BLOCK_CO)
+
+    @property
+    def ci_chunks(self) -> int:
+        return -(-self.ci // FW_KC)
+
+    @property
+    def chunk_grid(self) -> Tuple[int, int]:
+        """(rows, columns) of pixel chunks over one plane."""
+        return -(-self.h // self.chunk_rows), -(-self.w // self.chunk_cols)
+
+    @property
+    def units(self) -> int:
+        rows, cols = self.chunk_grid
+        return self.n * rows * cols
+
+    @property
+    def blocks(self) -> int:
+        return self.units * self.tiles_co * self.splits
+
+    @property
+    def wsplit_floats(self) -> int:
+        """Floats of the split weight: (big, small) pairs [CO tiles][CI_pad]
+        [9][FW_W_ROW], CI_pad rounded up to FW_KC."""
+        return self.tiles_co * self.ci_chunks * FW_KC * 9 * FW_W_ROW * 2
+
+    def unit(self, u: int) -> Tuple[int, int, int]:
+        """(n, i0, j0): the sample and top-left pixel of chunk u."""
+        rows, cols = self.chunk_grid
+        n, rc = divmod(u, rows * cols)
+        return n, (rc // cols) * self.chunk_rows, (rc % cols) * self.chunk_cols
+
+    def ci_range(self, z: int) -> Tuple[int, int]:
+        """The input channels [begin, end) that split z sums."""
+        begin = self.ci_chunks * z // self.splits
+        end = self.ci_chunks * (z + 1) // self.splits
+        return FW_KC * begin, min(self.ci, FW_KC * end)
+
+    def block(self, u: int, tile: int, z: int):
+        """What block (u, tile, z) covers: ((co begin, co end), (n, i0, j0),
+        (ci begin, ci end)), clipped to the layer."""
+        co0 = tile * FW_BLOCK_CO
+        return ((co0, min(self.co, co0 + FW_BLOCK_CO)), self.unit(u),
+                self.ci_range(z))
+
+
+def fwd_plan(n: int, ci: int, co: int, h: int, w: int, sms: int) -> FwdPlan:
+    """B3's plan on a card with `sms` multiprocessors (one 256-thread block
+    fits on each): chunks of 16 rows × 16 columns (16 × 8 for planes at
+    most 8 wide), and where the (chunk, CO tile) blocks leave SMs idle, as many
+    CI splits as fill them once, at most one channel chunk per split."""
+    cols = 8 if w <= 8 else 16
+    plan = FwdPlan(n, ci, co, h, w, cols, 1)
+    splits = max(1, min(sms // (plan.units * plan.tiles_co),
+                        plan.ci_chunks))
+    return FwdPlan(n, ci, co, h, w, cols, splits)
 
 
 # ------------------------------------------------------------ B5's split plan
@@ -276,14 +407,22 @@ def _run(name: str, fn: str, device: torch.device, *args) -> None:
 
 def launch_fwd(x, w, styles, d, noise, bias, gain: float,
                clamp: Optional[float]) -> torch.Tensor:
-    """B3 on contiguous float32 CUDA tensors → y [N,CO,H,W]; counts the
-    launch on `launch_fwd.launches`."""
+    """B3 on contiguous float32 CUDA tensors → y [N,CO,H,W], over the split
+    that `fwd_plan` lays out; counts one call on `launch_fwd.launches` (the
+    weight split, the main kernel and, when the plan splits CI, the
+    reduction: up to three CUDA launches)."""
     n, ci, h, wd = x.shape
     co = w.shape[0]
-    wt = w.permute(1, 2, 3, 0).reshape(ci, 9, co).contiguous()
+    plan = fwd_plan(n, ci, co, h, wd, _sm_count(x.device.index))
+    # 16-byte copies need whole 4-pixel groups and aligned rows
+    vec = wd % 4 == 0 and x.data_ptr() % 16 == 0
+    wsplit = torch.empty(plan.wsplit_floats, dtype=x.dtype, device=x.device)
+    partial = torch.empty((plan.splits, n, co, h, wd), dtype=x.dtype,
+                          device=x.device) if plan.splits > 1 else None
     y = torch.empty((n, co, h, wd), dtype=x.dtype, device=x.device)
-    _run("modconv_fwd", "stylemc_modconv_fwd", x.device, x, wt, styles, d,
-         noise, bias, y, n, ci, co, h, wd, gain, *_clamp_args(clamp))
+    _run("modconv_fwd", "stylemc_modconv_fwd", x.device, x, w, styles, d,
+         noise, bias, wsplit, partial, y, n, ci, co, h, wd, gain,
+         *_clamp_args(clamp), plan.splits, plan.chunk_cols, int(vec))
     launch_fwd.launches += 1
     return y
 
@@ -400,7 +539,7 @@ def fused_modulated_layer(x, w, styles, noise, bias,
     computes, and the caller takes the unfused path.
 
     x [N,CI,H,W]; w [CO,CI,3,3]; styles [N,CI]; noise [H,W] or [1,1,H,W]
-    (already scaled by noise_strength); bias [CO]; all float32.
+    (already scaled by noise_strength); bias [CO]; any floating types.
 
     Returns None for a w that is not 3x3, for noise that is None or not
     2-D/4-D, for per-sample [N,1,H,W] noise, and when `noise_grad` is True:
@@ -413,10 +552,14 @@ def fused_modulated_layer(x, w, styles, noise, bias,
     kernel's (Mosaic's lane tiling and VMEM), not the function's, so this
     port runs any plane size (4x4 included) and `force` has no effect.
 
-    Types: float32 only; a bf16 x raises TypeError. `mxu` is "default" or
-    "highest" and both keep fp32 accuracy here: B3 and B4 in fp32 FMAs, B5
-    on the tensor cores in 3xTF32. In JAX, "default" means bf16 multiplies
-    on the TPU's MXU; a bf16 policy is later work.
+    Types: as in JAX, the layer computes in float32 whatever the inputs'
+    floating types: x, w, styles and bias are cast to float32 before the
+    kernels, y comes back in x's type, and autograd casts dx, dw, ds and
+    dbias back to their inputs' types (a bf16 x gives a bf16 y and dx).
+    `mxu` is "default" or "highest" and both keep fp32 accuracy here: B3
+    and B5 on the tensor cores in 3xTF32, B4 in fp32 FMAs. In JAX,
+    "default" means bf16 multiplies on the TPU's MXU; a bf16 policy is
+    later work.
     """
     if mxu not in ("default", "highest"):
         raise ValueError(f"mxu must be 'default' or 'highest', got {mxu!r}")
@@ -430,8 +573,8 @@ def fused_modulated_layer(x, w, styles, noise, bias,
             return None
         noise = noise[0, 0]
     for name, t in (("x", x), ("w", w), ("styles", styles), ("bias", bias)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if not t.dtype.is_floating_point:
+            raise TypeError(f"{name}: expected a floating type, got {t.dtype}")
     n, ci, h, wd = x.shape
     co = w.shape[0]
     if w.shape[1] != ci or tuple(styles.shape) != (n, ci) \
@@ -442,7 +585,8 @@ def fused_modulated_layer(x, w, styles, noise, bias,
     if any(t.device != x.device for t in (w, styles, noise, bias)):
         raise ValueError("x, w, styles, noise and bias must be on one device")
     noise = noise.to(torch.float32).expand(h, wd).contiguous()
-    return _FusedLayer.apply(x.contiguous(), w.contiguous(),
-                             styles.contiguous(), noise, bias.contiguous(),
-                             float(gain),
-                             None if clamp is None else float(clamp))
+    y = _FusedLayer.apply(*(t.to(torch.float32).contiguous()
+                            for t in (x, w, styles)), noise,
+                          bias.to(torch.float32).contiguous(), float(gain),
+                          None if clamp is None else float(clamp))
+    return y.to(x.dtype)

@@ -8,8 +8,8 @@
   with nvcc's output.
 * On a machine with a card, B1 is held against its plain version and its
   gradient goes through B2, and B3/B4/B5 (the fused synthesis layer) are
-  held against theirs, B5 also at ragged tilings (marked `cuda`; skip
-  here).
+  held against theirs, B3 and B5 also at ragged tilings (marked `cuda`;
+  skip here).
 """
 
 import os
@@ -351,6 +351,24 @@ def test_modconv_kernels_match_plain_on_cuda():
                                                CLAMP)
         assert float((got - want).norm() / want.norm()) <= \
             chip_smoke.MODCONV_REL_L2, case
+    # B3 where its tiling is ragged, split over CI on the 4x4 plane, and on
+    # its 4-byte copies
+    for case, n, ci, co, h, w, misaligned in chip_smoke.MODCONV_FWD_RAGGED:
+        inp = make_inputs(n, ci, co, h, w, "cuda", seed=6)
+        xr, wr, sr = inp["x"], inp["w"], inp["s"]
+        if misaligned:
+            xr = torch.empty(xr.numel() + 1, device="cuda")[1:].view_as(
+                xr).copy_(xr)
+        dr, _ = mc.dcoefs(wr, sr)
+        want = mc.fused_layer_fwd_plain(xr, wr, sr, dr, inp["noise"],
+                                        inp["b"], GAIN, CLAMP)
+        before = mc.launch_fwd.launches
+        got = mc.launch_fwd(xr, wr, sr, dr, inp["noise"], inp["b"], GAIN,
+                            CLAMP)
+        assert mc.launch_fwd.launches == before + 1
+        assert float((got - want).abs().max()) <= \
+            chip_smoke.MODCONV_FWD_TOL * max(1.0, float(want.abs().max())), \
+            case
     # autograd through the Function: B3, B4 and B5 once each
     counters = [mc.launch_fwd, mc.launch_bwd_data, mc.launch_bwd_weight]
     before = [c.launches for c in counters]

@@ -186,10 +186,49 @@ def test_declines_as_jax_does():
         modconv.fused_modulated_layer(x, w, s, noise, b), rtol=0, atol=0)
 
 
+def _bf16_step(v):
+    """The spacing of bfloat16 values (8 significant bits) at |v|."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(v), 2.0 ** -126))) - 7)
+
+
 def test_rejects_bf16_and_unknown_mxu():
+    """A bf16 x computes as the JAX fused layer does (interpret mode, mxu
+    'highest'): in float32, y and dx in bf16, dw, ds and db in their inputs'
+    float32. Tolerances: y and dx within one bf16 step of JAX's elementwise
+    (the fp32 values agree to ~1e-7 and each side rounds them to bf16);
+    db within 1e-5·max|ref|, as it needs no y; dw and ds within
+    2^-8·max|ref|, one bf16 relative step: JAX's backward rebuilds z1 from
+    its bf16 y for dd, and dw and ds carry dd. An integer x and an unknown
+    `mxu` are refused."""
+    x, w, s, noise, b = _mk()
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+
+    def jax_loss(x, w, s, b):
+        y = _jax_fused(x, w, s, jnp.asarray(noise), b)
+        return jnp.sum(jnp.square(y.astype(jnp.float32))), y
+
+    (_, want_y), want = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2, 3), has_aux=True)(
+        jx, *map(jnp.asarray, (w, s, b)))
+    leaves = [torch.from_numpy(np.array(jx.astype(jnp.float32)))
+              .bfloat16().requires_grad_(True)]
+    leaves += [t.requires_grad_(True) for t in _t(w, s, b)]
+    y = _port(leaves[0], leaves[1], leaves[2], torch.from_numpy(noise),
+              leaves[3])
+    got = torch.autograd.grad(torch.sum(y.float() ** 2), leaves)
+    assert y.dtype == torch.bfloat16 and want_y.dtype == jnp.bfloat16
+    assert [g.dtype for g in got] == [torch.bfloat16] + [torch.float32] * 3
+    for name, g, a in (("y", y, want_y), ("dx", got[0], want[0])):
+        a = np.asarray(a.astype(jnp.float32))
+        err = np.abs(g.detach().float().numpy() - a)
+        assert (err <= _bf16_step(a)).all(), name
+    for name, g, a, tol in zip(("dw", "ds", "db"), got[1:], want[1:],
+                               (2.0 ** -8, 2.0 ** -8, 1e-5)):
+        _close_scaled(g, np.asarray(a), name, tol)
+
     x, w, s, noise, b = _t(*_mk())
-    with pytest.raises(TypeError, match="float32"):
-        modconv.fused_modulated_layer(x.bfloat16(), w, s, noise, b)
+    with pytest.raises(TypeError, match="floating"):
+        modconv.fused_modulated_layer(x.to(torch.int32), w, s, noise, b)
     with pytest.raises(ValueError, match="mxu"):
         modconv.fused_modulated_layer(x, w, s, noise, b, mxu="bf16x3")
     # "default" and "highest" compute the same fp32 function here

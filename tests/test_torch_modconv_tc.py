@@ -185,10 +185,18 @@ def test_plan_partials_sum_to_the_plain_dw(shape):
 
 def test_c_entry_points_take_the_wrappers_arguments():
     """Each C entry of the fused layer's kernels takes as many arguments as
-    the wrapper's ctypes signature passes."""
+    the wrapper's ctypes signature passes, and every signature the wrapper
+    holds names an entry of one of them (B3's, B4's and B5's)."""
+    found = set()
     for name in modconv.KERNELS:
         src = modconv.SOURCES[name][0].read_text()
         for fn, params in re.findall(
                 r'extern "C" int (\w+)\(([^)]*)\)', src):
             assert fn in modconv._ARGTYPES, fn
             assert len(params.split(",")) == len(modconv._ARGTYPES[fn]), fn
+            found.add(fn)
+    assert found == set(modconv._ARGTYPES)
+    # B3: nine tensors (x, w, s, d, noise, bias, the split weight, the
+    # partials, y), five sizes, gain and clamp, has_clamp, splits,
+    # chunk_cols, vec, the stream
+    assert len(modconv._ARGTYPES["stylemc_modconv_fwd"]) == 21
