@@ -30,12 +30,12 @@ script exits non-zero:
           clamp-binding case (x·600; there the B3 gate scales with the
           pre-clamp values, and float64 shows each side's error): B3 max
           |err| <= 2e-5·max(1, max|y|), each B4/B5 output relative L2 <=
-          1e-5; B3 and B5 also at ragged tilings (MODCONV_FWD_RAGGED,
-          MODCONV_DW_RAGGED), one counted call each, with their split
-          plans; a bf16-x fused_modulated_layer call (y in bf16, one B3
-          launch, within one bf16 step of the plain version beside B3's
-          fp32 gate); kernel,
-          plain, library-call (unfused forward, its backward to x and s,
+          1e-5; B3, B4 and B5 also at ragged tilings (MODCONV_FWD_RAGGED,
+          MODCONV_DX_RAGGED, MODCONV_DW_RAGGED), one counted call each,
+          with their split plans; a bf16-x fused_modulated_layer call (y
+          in bf16, one B3 launch, within one bf16 step of the plain version
+          beside B3's fp32 gate); kernel, plain, library-call (unfused
+          forward, its backward to x and s,
           torch.nn.grad.conv2d_weight) and bound times (3xTF32 on the
           tensor cores, and in fp32 FMAs beside it)
   modconv_grad  gradients of fused_modulated_layer (x, w, s, bias) on the
@@ -44,8 +44,9 @@ script exits non-zero:
           recorded beside them), the cotangent zeroed where the forwards
           take other branches of lrelu/clamp; B3/B4/B5 launched once each
   mma_rate  the tensor cores' TF32 rate through mma.sync (the ceiling of
-          B3's and B5's instruction; stylemc_torch.bench.mma_rate); then
-          B3's TFLOP/s and plan per timed shape beside it (modconv_fwd_rate)
+          B3's, B4's and B5's instruction; stylemc_torch.bench.mma_rate);
+          then each one's TFLOP/s and plan per timed shape beside it
+          (modconv_fwd_rate, modconv_bwd_data_rate, modconv_bwd_weight_rate)
   ab      stylemc_torch.bench.fused_layer_ab: fused against unfused at each
           conv1, forward at batch 4 and 16, fwd+bwd(x, s) and fwd+bwd(+w) at
           batch 4; per layer and summed per mode; each mode's launches held
@@ -404,6 +405,16 @@ MODCONV_FWD_RAGGED = [("ci40_co72", 2, 40, 72, 12, 12, False),
                       ("plane4_c96", 3, 96, 96, 4, 4, False),
                       ("w13", 2, 24, 16, 9, 13, False),
                       ("x_offset", 2, 32, 64, 8, 16, True)]
+# B4 alone at the edges of its tiling (its M tiles are 64 input channels,
+# its K chunks 8 output channels): CI not a multiple of 64 and CO not one of
+# 8 (split over CO); CO below one chunk; a 4x4 plane with C 96 (CO split);
+# W = 13 (4-byte copies of dz); and, unsplit, dy, y and x as views at a
+# 4-byte offset (the last field)
+MODCONV_DX_RAGGED = [("ci72_co36", 2, 72, 36, 12, 12, False),
+                     ("co5", 2, 16, 5, 6, 10, False),
+                     ("plane4_c96", 3, 96, 96, 4, 4, False),
+                     ("w13", 2, 24, 16, 9, 13, False),
+                     ("views_offset", 4, 72, 24, 36, 36, True)]
 
 
 def modconv_bound(name, n, ci, co, h, w):
@@ -536,7 +547,8 @@ def phase_modconv(torch):
             ("dx", "ds_direct", "dd", "db"), got, want)}
         row = {**shape, "rel_l2": errs, "max_rel_l2": max(errs.values()),
                "max_abs_err": max(float((a - p).abs().max())
-                                  for a, p in zip(got, want))}
+                                  for a, p in zip(got, want)),
+               "plan": _dx_plan(mc, n, ci, co, h, w)}
         dz_d = dy * mc._act_grad(y_p, GAIN, CLAMP) * d[:, :, None, None]
         x_s = x * s[:, :, None, None]
         got, want = dw_k(), dw_p()
@@ -574,6 +586,7 @@ def phase_modconv(torch):
         del dz_d, x_s
     rows["modconv_fwd"] += modconv_fwd_ragged(torch)
     rows["modconv_bwd_weight"] += modconv_dw_ragged(torch)
+    rows["modconv_bwd_data"] += modconv_dx_ragged(torch)
     modconv_bf16(torch)
     torch.cuda.empty_cache()
     return rows, phase_modconv_grad(torch)
@@ -590,6 +603,18 @@ def _fwd_plan(mc, n, ci, co, h, w):
     plan = mc.fwd_plan(n, ci, co, h, w, mc._sm_count(0))
     return {"splits": plan.splits, "chunk_cols": plan.chunk_cols,
             "blocks": plan.blocks, "units": plan.units}
+
+
+def _dx_plan(mc, n, ci, co, h, w):
+    """B4's plan: B3's with CI and CO swapped (splits cut CO)."""
+    return _fwd_plan(mc, n, co, ci, h, w)
+
+
+def _offset_view(torch, t):
+    """A copy of `t` whose data starts 4 bytes past an aligned allocation,
+    so the kernels take their 4-byte copy paths."""
+    return torch.empty(t.numel() + 1, device=t.device)[1:].view_as(
+        t).copy_(t)
 
 
 def _fwd_gate(mc, x, wt, s, d, noise, b, y_p):
@@ -612,8 +637,7 @@ def modconv_fwd_ragged(torch):
         inp = make_inputs(n, ci, co, h, w, "cuda", seed=8)
         x, wt, s, noise, b = (inp[k] for k in ("x", "w", "s", "noise", "b"))
         if misaligned:
-            x = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(
-                x).copy_(x)
+            x = _offset_view(torch, x)
         d, _ = mc.dcoefs(wt, s)
         before = mc.launch_fwd.launches
         got = mc.launch_fwd(x, wt, s, d, noise, b, GAIN, CLAMP)
@@ -683,8 +707,7 @@ def modconv_dw_ragged(torch):
         inp = make_inputs(n, ci, co, h, w, "cuda", seed=5)
         x, wt, s, noise, b = (inp[k] for k in ("x", "w", "s", "noise", "b"))
         if misaligned:
-            x = torch.empty(x.numel() + 1, device="cuda")[1:].view_as(
-                x).copy_(x)
+            x = _offset_view(torch, x)
         d, _ = mc.dcoefs(wt, s)
         y = mc.fused_layer_fwd_plain(x, wt, s, d, noise, b, GAIN, CLAMP)
         dy = torch.randn(y.shape, generator=torch.Generator(
@@ -703,6 +726,47 @@ def modconv_dw_ragged(torch):
         if not row["max_rel_l2"] <= MODCONV_REL_L2:
             raise AssertionError(f"modconv_bwd_weight disagrees with its "
                                  f"plain version: {row}")
+        rows.append(row)
+    return rows
+
+
+def modconv_dx_ragged(torch):
+    """B4 against its plain version at `MODCONV_DX_RAGGED` (relative L2 <=
+    1e-5 on every output), one counted call each."""
+    from stylemc_torch.bench.fused_layer_ab import CLAMP, GAIN, make_inputs
+    from stylemc_torch.ops.kernels import modconv as mc
+
+    rows = []
+    for case, n, ci, co, h, w, misaligned in MODCONV_DX_RAGGED:
+        inp = make_inputs(n, ci, co, h, w, "cuda", seed=10)
+        x, wt, s, noise, b = (inp[k] for k in ("x", "w", "s", "noise", "b"))
+        d, _ = mc.dcoefs(wt, s)
+        y = mc.fused_layer_fwd_plain(x, wt, s, d, noise, b, GAIN, CLAMP)
+        dy = torch.randn(y.shape, generator=torch.Generator(
+            device="cuda").manual_seed(14), device="cuda")
+        if misaligned:
+            dy, y, x = (_offset_view(torch, t) for t in (dy, y, x))
+        before = mc.launch_bwd_data.launches
+        got = mc.launch_bwd_data(dy, y, x, wt, s, d, noise, b, GAIN, CLAMP)
+        launched = mc.launch_bwd_data.launches - before
+        want = mc.fused_layer_bwd_data_plain(dy, y, x, wt, s, d, noise, b,
+                                             GAIN, CLAMP)
+        errs = {k: _rel_l2(a, p) for k, a, p in zip(
+            ("dx", "ds_direct", "dd", "db"), got, want)}
+        row = {"case": case, "n": n, "ci": ci, "co": co, "h": h, "w": w,
+               "data_ptr_mod_16": {k: t.data_ptr() % 16 for k, t in (
+                   ("dy", dy), ("y", y), ("x", x))},
+               "rel_l2": errs, "max_rel_l2": max(errs.values()),
+               "max_abs_err": max(float((a - p).abs().max())
+                                  for a, p in zip(got, want)),
+               "launches": launched, "plan": _dx_plan(mc, n, ci, co, h, w)}
+        emit({"phase": "modconv", "kernel": "modconv_bwd_data", **row})
+        if launched != 1:
+            raise AssertionError(f"modconv_bwd_data {case}: {launched} "
+                                 f"launches")
+        if not row["max_rel_l2"] <= MODCONV_REL_L2:
+            raise AssertionError(f"modconv_bwd_data disagrees with its plain "
+                                 f"version: {row}")
         rows.append(row)
     return rows
 
@@ -1560,8 +1624,8 @@ MODCONV_REPLACES = {
 
 
 def phase_mma_rate():
-    """The tensor cores' TF32 rate through mma.sync, the instruction B3 and
-    B5 are built on (`stylemc_torch.bench.mma_rate`): the ceiling their
+    """The tensor cores' TF32 rate through mma.sync, the instruction B3, B4
+    and B5 are built on (`stylemc_torch.bench.mma_rate`): the ceiling their
     TFLOP/s are read against."""
     from stylemc_torch.bench.mma_rate import mma_sync_tf32_tflop_per_s
 
@@ -1571,24 +1635,27 @@ def phase_mma_rate():
     return rate
 
 
-def fwd_rates(rows, mma_rate):
-    """B3's TFLOP/s and split plan per timed shape beside `mma.sync`'s
-    3xTF32 ceiling (one line each, after the mma_rate phase)."""
+def kernel_rates(rows, mma_rate):
+    """B3's, B4's and B5's TFLOP/s and split plan per timed shape beside
+    `mma.sync`'s 3xTF32 ceiling (one `<kernel>_rate` line each, after the
+    mma_rate phase)."""
     ceiling = mma_rate / TF32_PASSES
-    for r in rows:
-        if "kernel_tflop_per_s" in r:
-            emit({"phase": "modconv_fwd_rate", "case": r["case"],
-                  "n": r["n"], "h": r["h"], "w": r["w"], "plan": r["plan"],
-                  "kernel_tflop_per_s": r["kernel_tflop_per_s"],
-                  "mma_sync_3xtf32_ceiling_tflop_per_s": ceiling,
-                  "share_of_ceiling": r["kernel_tflop_per_s"] / ceiling})
+    for name in MODCONV_KERNELS:
+        for r in rows[name]:
+            if "kernel_tflop_per_s" in r:
+                emit({"phase": f"{name}_rate", "case": r["case"],
+                      "n": r["n"], "h": r["h"], "w": r["w"],
+                      "plan": r["plan"],
+                      "kernel_tflop_per_s": r["kernel_tflop_per_s"],
+                      "mma_sync_3xtf32_ceiling_tflop_per_s": ceiling,
+                      "share_of_ceiling": r["kernel_tflop_per_s"] / ceiling})
 
 
 def modconv_entries(rows, paths, smi, mma_rate):
     """The `kernels` line's B3/B4/B5 entries: times summed over the seven
     full-width conv1 shapes at batch 4 (one training step's conv1s, were
-    the generator wired to the kernels); B3's batch-16 sum beside it; B3's
-    and B5's rates beside mma.sync's 3xTF32 ceiling."""
+    the generator wired to the kernels); B3's batch-16 sum beside it; each
+    one's rate beside mma.sync's 3xTF32 ceiling."""
     entries = []
     for name in MODCONV_KERNELS:
         main_rows = [r for r in rows[name] if r["case"].startswith("b")
@@ -1627,9 +1694,7 @@ def modconv_entries(rows, paths, smi, mma_rate):
                 "library_ms")})
         else:
             entry["max_rel_l2"] = max(r["max_rel_l2"] for r in rows[name])
-        if name != "modconv_bwd_data":
-            entry["mma_sync_3xtf32_ceiling_tflop_per_s"] = (
-                mma_rate / TF32_PASSES)
+        entry["mma_sync_3xtf32_ceiling_tflop_per_s"] = mma_rate / TF32_PASSES
         entries.append(entry)
     return entries
 
@@ -1652,7 +1717,7 @@ def main() -> int:
     # before any profiler trace, like the training phases
     modconv_rows, _ = phase_modconv(torch)
     mma_rate = phase_mma_rate()
-    fwd_rates(modconv_rows["modconv_fwd"], mma_rate)
+    kernel_rates(modconv_rows, mma_rate)
     paths = {}  # path → its launches, synthesis calls and backward passes
     phase_ab(torch, smi, paths)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

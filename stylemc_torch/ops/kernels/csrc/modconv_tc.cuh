@@ -1,6 +1,6 @@
-// Shared by the fused synthesis layer's tensor-core kernels (B3,
-// modconv_fwd.cu; B5, modconv_bwd_weight.cu): cp.async copies, the TF32
-// rounding and 3xTF32 split, and mma.sync.m16n8k8 TF32.
+// Shared by the fused synthesis layer's tensor-core kernels (B3 and B4
+// through modconv_igemm.cuh; B5, modconv_bwd_weight.cu): cp.async copies,
+// the TF32 rounding and 3xTF32 split, and mma.sync.m16n8k8 TF32.
 
 #pragma once
 

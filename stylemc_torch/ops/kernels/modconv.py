@@ -12,16 +12,20 @@ weight needs a gradient, so a frozen generator (find_direction, serving)
 never pays for dW; the chain through d = rsqrt(s²·ΣW² + 1e-8) runs in plain
 torch outside the kernels, as in the JAX wrapper.
 
-B3 and B5 run on the tensor cores in 3xTF32 (`fused_layer_fwd_3xtf32` and
-`fused_layer_bwd_weight_3xtf32` emulate their arithmetic for the tests)
-over the splits that `fwd_plan` and `bwd_weight_plan` lay out; B4 runs on
-the CUDA cores.
+B3, B4 and B5 run on the tensor cores in 3xTF32 (`fused_layer_fwd_3xtf32`,
+`fused_layer_bwd_data_3xtf32` and `fused_layer_bwd_weight_3xtf32` emulate
+their arithmetic for the tests) over the splits that `fwd_plan` and
+`bwd_weight_plan` lay out. B3 and B4 share one mainloop
+(`csrc/modconv_igemm.cuh`): B4's transposed convolution is B3's implicit
+GEMM with CI and CO swapped and the taps flipped, planned by `fwd_plan`
+with the roles swapped.
 
 `launch_fwd.launches`, `launch_bwd_data.launches` and
 `launch_bwd_weight.launches` count the calls of each kernel; B3 is up to
 three CUDA launches (the weight split, the main kernel, the reduction of
-its CI splits) and B4 two (the dz pass and the transposed convolution),
-each counted once.
+its CI splits) and B4 four (the dz pass, the weight split, the transposed
+convolution, and the reduction of its ds partials or CO splits), each
+counted once.
 """
 
 from __future__ import annotations
@@ -43,9 +47,12 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("modconv_fwd", "modconv_bwd_data", "modconv_bwd_weight")
 # each library's .cu file and the headers it includes (hashed, not compiled)
 SOURCES = {
-    "modconv_fwd": (_CSRC / "modconv_fwd.cu", _CSRC / "modconv_tc.cuh"),
+    "modconv_fwd": (_CSRC / "modconv_fwd.cu", _CSRC / "modconv_igemm.cuh",
+                    _CSRC / "modconv_tc.cuh"),
     "modconv_bwd_data": (_CSRC / "modconv_bwd_data.cu",
-                         _CSRC / "modconv_common.cuh"),
+                         _CSRC / "modconv_common.cuh",
+                         _CSRC / "modconv_igemm.cuh",
+                         _CSRC / "modconv_tc.cuh"),
     "modconv_bwd_weight": (_CSRC / "modconv_bwd_weight.cu",
                            _CSRC / "modconv_common.cuh",
                            _CSRC / "modconv_tc.cuh"),
@@ -54,8 +61,8 @@ SOURCES = {
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     "stylemc_modconv_fwd": [_P] * 9 + [_I] * 5 + [_F, _F] + [_I] * 4 + [_P],
-    "stylemc_modconv_bwd_data": [_P] * 13 + [_I] * 5 + [_F, _F, _I, _P],
-    "stylemc_modconv_bwd_data_tiles": [_I] * 2,
+    "stylemc_modconv_bwd_data": [_P] * 16 + [_I] * 5 + [_F, _F] + [_I] * 4
+    + [_P],
     "stylemc_modconv_bwd_weight": [_P] * 6 + [_I] * 5 + [_F, _F] + [_I] * 4
     + [_P],
 }
@@ -146,7 +153,7 @@ def _tf32_round(v: torch.Tensor) -> torch.Tensor:
 
 
 def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(big, small) of float32 `v` as B3 and B5 split their operands:
+    """(big, small) of float32 `v` as B3, B4 and B5 split their operands:
     big = cvt.rna.tf32.f32(v) (round to nearest, ties away from zero, to 10
     mantissa bits) and small = cvt.rna.tf32.f32(v − big)."""
     big = _tf32_round(v)
@@ -176,7 +183,8 @@ def fused_layer_bwd_weight_3xtf32(dy, y, x, styles, d, gain: float,
     return (per_n * scale).sum(dim=0).reshape(co, ci, 3, 3)
 
 
-# B3's chunk of input channels, as csrc/modconv_fwd.cu fixes it
+# B3's chunk of input channels (B4's of output channels), as
+# csrc/modconv_igemm.cuh fixes it
 FW_KC = 8
 
 
@@ -205,11 +213,42 @@ def fused_layer_fwd_3xtf32(x, w, styles, d, noise, bias, gain: float,
     return y if clamp is None else y.clamp(-clamp, clamp)
 
 
-# ------------------------------------------------------------ B3's split plan
+def fused_layer_bwd_data_3xtf32(dy, y, x, w, styles, d, noise, bias,
+                                gain: float, clamp: Optional[float],
+                                passes: int = 3):
+    """B4's function with B4's arithmetic (csrc/modconv_bwd_data.cu), in
+    torch ops on float32: dz·d and the flipped, transposed w split by
+    `tf32_split`, the products small·big, big·small and big·big of each
+    chunk of FW_KC output channels (all nine taps) summed in float32, the
+    chunks' sums added in order into dxmod; then dx = dxmod·s and
+    ds_direct = Σ dxmod·x. dd and db come from the dz pass, which has no
+    products for the tensor cores: `fused_layer_bwd_data_plain`'s. passes=1
+    keeps big·big alone: one TF32 pass. Tests use it; no path of the port
+    does. → (dx, ds_direct, dd, db)."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    dz = dy * _act_grad(y, gain, clamp)
+    a_big, a_small = tf32_split(dz * d[:, :, None, None])
+    # the transposed convolution as a convolution: [CI, CO, 3, 3], flipped
+    w_big, w_small = tf32_split(w.transpose(0, 1).flip(2, 3))
+    pairs = [(w_big, a_big)] if passes == 1 else [
+        (w_small, a_big), (w_big, a_small), (w_big, a_big)]
+    dxmod = None
+    for c0 in range(0, dy.shape[1], FW_KC):
+        part = sum(F.conv2d(b[:, c0:c0 + FW_KC], a[:, c0:c0 + FW_KC],
+                            padding=1) for a, b in pairs)
+        dxmod = part if dxmod is None else dxmod + part
+    _, _, dd, db = fused_layer_bwd_data_plain(dy, y, x, w, styles, d, noise,
+                                              bias, gain, clamp)
+    return (dxmod * styles[:, :, None, None], (dxmod * x).sum(dim=(2, 3)),
+            dd, db)
 
-# B3's block tile, the rows of its pixel chunk and the pairs of a row of
-# its split weight (the tile's 64 output channels and 4 of padding), as
-# csrc/modconv_fwd.cu fixes them
+
+# ------------------------------------------------------ B3's and B4's plan
+
+# B3's block tile (B4's: 64 input channels), the rows of its pixel chunk
+# and the pairs of a row of its split weight (the tile's 64 channels and 4
+# of padding), as csrc/modconv_igemm.cuh fixes them
 FW_BLOCK_CO = 64
 FW_CHUNK_ROWS = 16
 FW_W_ROW = 68
@@ -223,7 +262,11 @@ class FwdPlan:
     are cut into chunks of FW_KC, and split z sums chunks
     [chunks·z // splits, chunks·(z+1) // splits) into partial z. With one
     split the kernel writes y; with more, a reduction sums the partials in
-    split order."""
+    split order.
+
+    B4's transposed convolution runs the same GEMM with the roles swapped,
+    planned by `fwd_plan(n, co, ci, h, w, sms)`: there `ci` is the layer's
+    CO (the K range that splits cut) and `co` its CI (the M tiles)."""
 
     n: int
     ci: int
@@ -430,24 +473,34 @@ def launch_fwd(x, w, styles, d, noise, bias, gain: float,
 def launch_bwd_data(dy, y, x, w, styles, d, noise, bias, gain: float,
                     clamp: Optional[float]):
     """B4 on contiguous float32 CUDA tensors → (dx, ds_direct, dd, db), as
-    `fused_layer_bwd_data_plain`; counts one call on
-    `launch_bwd_data.launches` (two CUDA launches). ds_direct is the sum of
-    the kernel's per-tile partials."""
+    `fused_layer_bwd_data_plain`, over the split that `fwd_plan` lays out
+    with CI and CO swapped (M = CI, K = CO); counts one call on
+    `launch_bwd_data.launches` (the dz pass, the weight split, the main
+    kernel and the reduction of its ds partials or CO splits: four CUDA
+    launches). Every output, ds_direct included, comes from the kernels."""
     n, co, h, wd = dy.shape
     ci = x.shape[1]
-    lib = _library("modconv_bwd_data")
-    tiles = lib.stylemc_modconv_bwd_data_tiles(h, wd)
-    wtt = w.flip(2, 3).permute(0, 2, 3, 1).reshape(co, 9, ci).contiguous()
-    dzd = torch.empty_like(dy)
-    dx = torch.empty_like(x)
-    ds_part = torch.empty((n, ci, tiles), dtype=x.dtype, device=x.device)
-    dd = torch.empty((n, co), dtype=x.dtype, device=x.device)
+    plan = fwd_plan(n, co, ci, h, wd, _sm_count(x.device.index))
+    opts = dict(dtype=x.dtype, device=x.device)
+    dz = torch.empty_like(dy)
+    # the main kernel stages dz: 16-byte copies need whole 4-pixel groups
+    vec = wd % 4 == 0 and dz.data_ptr() % 16 == 0
+    wsplit = torch.empty(plan.wsplit_floats, **opts)
+    rows, cols = plan.chunk_grid
+    partial = torch.empty((plan.splits, n, ci, h, wd), **opts) \
+        if plan.splits > 1 else None
+    ds_part = torch.empty((n, ci, rows * cols), **opts) \
+        if plan.splits == 1 else None
+    dx = torch.empty((n, ci, h, wd), **opts)
+    ds = torch.empty((n, ci), **opts)
+    dd = torch.empty((n, co), **opts)
     db = torch.empty_like(dd)
     _run("modconv_bwd_data", "stylemc_modconv_bwd_data", x.device, dy, y, x,
-         wtt, styles, d, noise, bias, dzd, dx, ds_part, dd, db, n, ci, co, h,
-         wd, gain, *_clamp_args(clamp))
+         w, styles, d, noise, bias, dz, wsplit, partial, ds_part, dx, ds, dd,
+         db, n, ci, co, h, wd, gain, *_clamp_args(clamp), plan.splits,
+         plan.chunk_cols, int(vec))
     launch_bwd_data.launches += 1
-    return dx, ds_part.sum(dim=2), dd, db
+    return dx, ds, dd, db
 
 
 def launch_bwd_weight(dy, y, x, styles, d, gain: float,
@@ -556,8 +609,8 @@ def fused_modulated_layer(x, w, styles, noise, bias,
     floating types: x, w, styles and bias are cast to float32 before the
     kernels, y comes back in x's type, and autograd casts dx, dw, ds and
     dbias back to their inputs' types (a bf16 x gives a bf16 y and dx).
-    `mxu` is "default" or "highest" and both keep fp32 accuracy here: B3
-    and B5 on the tensor cores in 3xTF32, B4 in fp32 FMAs. In JAX,
+    `mxu` is "default" or "highest" and both keep fp32 accuracy here: B3,
+    B4 and B5 on the tensor cores in 3xTF32. In JAX,
     "default" means bf16 multiplies on the TPU's MXU; a bf16 policy is
     later work.
     """

@@ -369,6 +369,29 @@ def test_modconv_kernels_match_plain_on_cuda():
         assert float((got - want).abs().max()) <= \
             chip_smoke.MODCONV_FWD_TOL * max(1.0, float(want.abs().max())), \
             case
+    # B4 where its tiling is ragged, split over CO on the small planes, on
+    # its 4-byte copies, and with dy, y and x as views at a 4-byte offset
+    for case, n, ci, co, h, w, misaligned in chip_smoke.MODCONV_DX_RAGGED:
+        inp = make_inputs(n, ci, co, h, w, "cuda", seed=7)
+        xr, wr, sr = inp["x"], inp["w"], inp["s"]
+        dr, _ = mc.dcoefs(wr, sr)
+        yr = mc.fused_layer_fwd_plain(xr, wr, sr, dr, inp["noise"], inp["b"],
+                                      GAIN, CLAMP)
+        dyr = torch.randn_like(yr)
+        if misaligned:
+            dyr, yr, xr = (torch.empty(t.numel() + 1, device="cuda")[1:]
+                           .view_as(t).copy_(t) for t in (dyr, yr, xr))
+            assert all(t.data_ptr() % 16 != 0 for t in (dyr, yr, xr))
+        before = mc.launch_bwd_data.launches
+        got = mc.launch_bwd_data(dyr, yr, xr, wr, sr, dr, inp["noise"],
+                                 inp["b"], GAIN, CLAMP)
+        assert mc.launch_bwd_data.launches == before + 1
+        want = mc.fused_layer_bwd_data_plain(dyr, yr, xr, wr, sr, dr,
+                                             inp["noise"], inp["b"], GAIN,
+                                             CLAMP)
+        for name, g, p in zip(("dx", "ds_direct", "dd", "db"), got, want):
+            assert float((g - p).norm() / p.norm()) <= \
+                chip_smoke.MODCONV_REL_L2, (case, name)
     # autograd through the Function: B3, B4 and B5 once each
     counters = [mc.launch_fwd, mc.launch_bwd_data, mc.launch_bwd_weight]
     before = [c.launches for c in counters]
