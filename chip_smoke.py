@@ -14,13 +14,17 @@ script exits non-zero:
   build   nvcc builds of the five kernel libraries (B1 upsample2x, B2
           downsample2x, B3 modconv_fwd, B4 modconv_bwd_data, B5
           modconv_bwd_weight) from the checkout's sources, started together
-  kernel  B1 (upsample2x) against its plain torch version at every ToRGB
-          chain shape of FFHQ-256 at batch 16, the 1024 px plane and an odd
-          shape; B2 (downsample2x) at the training step's backward shapes
-          [4,3,2h,2h], the 1024 px plane and an odd shape; max |err| <= 1e-5;
+  kernel  the launch floor (an empty kernel, stylemc_torch.bench.launch_floor,
+          timed as the kernels are); B1 (upsample2x) against its plain torch
+          version at every ToRGB chain shape of FFHQ-256 at batch 16, the
+          1024 px plane and two odd shapes; B2 (downsample2x) at the training
+          step's backward shapes [4,3,2h,2h], the 1024 px plane and two odd
+          shapes; both on an input 4 bytes off alignment; max |err| <= 1e-5;
           kernel, plain, library-call and bound times (device time: CUDA
-          events around calls queued behind a sleep kernel), and the
-          wrapper's time over back-to-back calls, which includes its host cost
+          events around calls queued behind a sleep kernel), each row with
+          its launch plan, the floor and the aim (floor + 1.5 x bound), and
+          the wrapper's time over back-to-back calls, which includes its
+          host cost
   grad    first- and second-order gradients through upsample2d_kernel and
           downsample2d_kernel on the card against the same computation
           through the plain versions (relative L2 <= 1e-5)
@@ -62,7 +66,9 @@ script exits non-zero:
           card with the profiler
   train_parity  one full-width step (batch 2, seeds 1-2) from the same
           direction on the card and on the CPU: losses within rtol 1e-4,
-          Δs gradients within relative L2 1e-3
+          Δs gradients within relative L2 1e-3; beside it, not gated, the
+          card's Δs gradient with B1's and B2's plain versions in place of
+          the kernels
   serve   full-width FFHQ-256 generator (random weights from a seed) saved
           as a native .npz, BatchEditor.from_files + warmup, an HTTP server
           answering /edit and /stats; images/s at batch 16 and 64; where
@@ -86,6 +92,7 @@ repository, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -109,11 +116,22 @@ TF32_FLOP_PER_S = 495e12
 TF32_PASSES = 3
 KERNEL_TOL = 1e-5
 CHAIN_SHAPES = [(16, 3, h, h) for h in (4, 8, 16, 32, 64, 128)]
-EXTRA_SHAPES = [(1, 3, 512, 512), (2, 5, 6, 10)]
+# the 1024 px plane, and two odd shapes, the second an odd width (B1's
+# 4-byte path)
+EXTRA_SHAPES = [(1, 3, 512, 512), (2, 5, 6, 10), (2, 5, 7, 9)]
 # B2's inputs in one training step's backward (batch 4): the cotangent of
 # each upsample of the ToRGB chain
 TRAIN_DOWN_SHAPES = [(4, 3, 2 * h, 2 * h) for h in (4, 8, 16, 32, 64, 128)]
-DOWN_SHAPES = TRAIN_DOWN_SHAPES + [(1, 3, 1024, 1024), (2, 5, 6, 10)]
+# beside them the 1024 px plane and two odd output planes, 3x5 and 5x7 (B2's
+# 4-byte path)
+DOWN_SHAPES = TRAIN_DOWN_SHAPES + [(1, 3, 1024, 1024), (2, 5, 6, 10),
+                                   (2, 5, 10, 14)]
+# B1 and B2 on an input that starts 4 bytes past an aligned allocation (the
+# wrapper takes the 4-byte path for it)
+OFFSET_SHAPE = (2, 5, 6, 10)
+# B1's and B2's aim per launch: the launch floor plus this many times the
+# bound (recorded beside each row, not a gate)
+AIM_BOUND_FACTOR = 1.5
 GRAD_SHAPES = [(4, 3, 16, 16), (4, 3, 128, 128)]
 GRAD_TOL = 1e-5
 TRAIN_SEEDS = 129
@@ -272,10 +290,11 @@ def phase_build():
 
 
 def _kernel_rows(torch, name, shapes, kernel, launch, plain, taps, bound,
-                 library, weight_taps):
+                 library, weight_taps, plan, floor_ms):
     """Hold one kernel against its plain version at `shapes` and time the
     kernel, the plain version and the library call (device time), and the
-    wrapper (host cost included)."""
+    wrapper (host cost included). Each row carries the kernel's launch plan
+    (`plan(shape)`), the launch floor and the aim, floor + 1.5 x bound."""
     from stylemc_torch.bench.timing import device_ms
     from stylemc_torch.ops import setup_filter_np
 
@@ -295,11 +314,17 @@ def _kernel_rows(torch, name, shapes, kernel, launch, plain, taps, bound,
         fns = {"kernel": lambda: launch(x, taps),
                "plain": lambda: plain(x, taps),
                "library": lambda: library(x, weight)}
+        p = plan(shape)
         row = {"shape": list(shape), "max_abs_err": err,
                "library_max_abs_err": lib_err,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "launch_floor_ms": floor_ms,
+               "aim_ms": floor_ms + AIM_BOUND_FACTOR * bound_ms,
+               "plan": {"block": p.block, "grid": p.grid,
+                        "rows": p.rows, "vector": p.vector}}
         for key, fn in fns.items():
             row[f"{key}_ms"] = device_ms(fn)
+        row["within_aim"] = row["kernel_ms"] <= row["aim_ms"]
         row["wrapper_event_ms"] = event_ms(lambda: kernel(x, f))
         emit({"phase": "kernel", "kernel": name, **row})
         if not err <= KERNEL_TOL:
@@ -312,25 +337,53 @@ def _kernel_rows(torch, name, shapes, kernel, launch, plain, taps, bound,
     return rows
 
 
+def _offset_rows(torch, f, ops):
+    """B1 and B2 on an input that starts 4 bytes past an aligned allocation
+    (`OFFSET_SHAPE`), each against its plain version: one launch each."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = _offset_view(torch, torch.randn(OFFSET_SHAPE, generator=gen,
+                                        device="cuda"))
+    for name, (kernel, plain) in ops.items():
+        err = float((kernel(x, f) - plain(x)).abs().max())
+        emit({"phase": "kernel", "kernel": name, "case": "x_offset",
+              "shape": list(OFFSET_SHAPE), "max_abs_err": err})
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on an offset input: {err}")
+
+
 def phase_kernel(torch):
+    """The launch floor (an empty kernel, `stylemc_torch.bench.launch_floor`),
+    then B1 and B2 at their shapes, and on an offset input."""
+    from stylemc_torch.bench.launch_floor import launch_floor_ms
     from stylemc_torch.ops import setup_filter_np
     from stylemc_torch.ops.kernels.upfirdn2d import (
         _canonical_taps, downsample2d_kernel, downsample2d_plain,
-        launch_downsample, launch_upsample, upsample2d_kernel,
-        upsample2d_plain)
+        downsample_plan, launch_downsample, launch_upsample,
+        upsample2d_kernel, upsample2d_plain, upsample_plan)
 
+    floor_ms = launch_floor_ms("cuda")
+    emit({"phase": "kernel", "launch_floor_ms": floor_ms})
     f = setup_filter_np([1, 3, 3, 1])
     up_taps = _canonical_taps(f, 4.0, False)
     down_taps = _canonical_taps(f, 1.0, False)
-    return {
+    _offset_rows(torch, f, {
+        "upsample2x": (upsample2d_kernel,
+                       lambda x: upsample2d_plain(x, up_taps)),
+        "downsample2x": (downsample2d_kernel,
+                         lambda x: downsample2d_plain(x, down_taps))})
+    return floor_ms, {
         "upsample2x": _kernel_rows(
             torch, "upsample2x", CHAIN_SHAPES + EXTRA_SHAPES,
             upsample2d_kernel, launch_upsample, upsample2d_plain, up_taps,
-            upsample_bound, library_upsample, up_taps),
+            upsample_bound, library_upsample, up_taps,
+            lambda s: upsample_plan(s[0] * s[1], s[2], s[3]), floor_ms),
         "downsample2x": _kernel_rows(
             torch, "downsample2x", DOWN_SHAPES, downsample2d_kernel,
             launch_downsample, downsample2d_plain, down_taps,
-            downsample_bound, library_downsample, down_taps[::-1]),
+            downsample_bound, library_downsample, down_taps[::-1],
+            lambda s: downsample_plan(s[0] * s[1], s[2], s[3]),
+            floor_ms),
     }
 
 
@@ -1513,6 +1566,21 @@ def phase_train(torch, net, smi, paths):
     return editor, (cfg, gp, clip_cpu, arc_cpu, clip, arc)
 
 
+@contextlib.contextmanager
+def _plain_resample_on_card():
+    """B1's and B2's plain versions (torch ops) in place of the kernels for
+    CUDA tensors, for a diagnostic; nothing counts a launch meanwhile."""
+    from stylemc_torch.ops.kernels import upfirdn2d as up
+
+    saved = up.launch_upsample, up.launch_downsample
+    up.launch_upsample = up.upsample2d_plain
+    up.launch_downsample = up.downsample2d_plain
+    try:
+        yield
+    finally:
+        up.launch_upsample, up.launch_downsample = saved
+
+
 def phase_train_parity(torch, net, editor, direction_file, models, paths):
     """One full-width step (batch 2, seeds 1-2) from the seeded direction,
     on the card and on the CPU: the losses and the Δs gradients agree.
@@ -1586,6 +1654,10 @@ def phase_train_parity(torch, net, editor, direction_file, models, paths):
     # precompute, the loss and the generator-alone piece: three synthesis
     # calls, two of them differentiated
     record_launches(paths, cfg, "train_parity", launches, 3, 2)
+    # the same card step with B1 and B2's plain versions (not gated): how
+    # far the gate reads the last bits of B1's rounding
+    with _plain_resample_on_card():
+        g_plain = step(gp, clip, arc, styles, "cuda")[2]
     t0 = time.perf_counter()
     (loss_c, aux_c, g_c, g_gen_c, g_img_c, _), cpu_launches = count_launches(
         lambda: step(gp_cpu, clip_cpu, arc_cpu, styles.cpu(), "cpu"))
@@ -1598,6 +1670,7 @@ def phase_train_parity(torch, net, editor, direction_file, models, paths):
           "aux_rel": {k: abs(aux[k] - aux_c[k]) / max(abs(aux_c[k]), 1e-30)
                       for k in aux},
           "grad_rel_l2": grad_rel, "grad_norm": float(g_c.norm()),
+          "grad_rel_l2_plain_resample_on_card": rel(g_plain, g_c),
           "generator_grad_rel_l2": rel(g_gen, g_gen_c),
           "generator_grad_rel_l2_by_row": {
               row: rel(g_gen[0, i], g_gen_c[0, i])
@@ -1712,7 +1785,7 @@ def main() -> int:
 
     smi = phase_env(torch)
     phase_build()
-    kernel_rows = phase_kernel(torch)
+    floor_ms, kernel_rows = phase_kernel(torch)
     phase_grad(torch)
     # before any profiler trace, like the training phases
     modconv_rows, _ = phase_modconv(torch)
@@ -1761,6 +1834,10 @@ def main() -> int:
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_us": total("bound_ms") * 1e3,
             "bound_by": main_rows[0]["bound_by"],
+            "launch_floor_ms": floor_ms,
+            # the floor times the launches one call makes (one per shape)
+            "launch_floor_per_call_ms": floor_ms * len(main_rows),
+            "launches_within_aim": sum(r["within_aim"] for r in main_rows),
             "library_ms": total("library_ms"),
             "wrapper_event_ms": total("wrapper_event_ms"),
             "times_are": times_are[name] + "; *_ms device time (CUDA events "

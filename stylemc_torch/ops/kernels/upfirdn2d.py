@@ -9,12 +9,15 @@ and a separable 4-tap filter. For a CPU tensor they run the plain versions
 `csrc/upsample2x.cu` or `csrc/downsample2x.cu`, or raise. Each is a
 `torch.autograd.Function` whose backward is the other with reversed taps,
 as the JAX custom VJPs are, so a gradient on the card runs both kernels.
+`upsample_plan` and `downsample_plan` lay out each launch's threads; the
+C entries check the plan and launch it as given.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -23,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {name: (_CSRC / f"{name}.cu",)
+SOURCES = {name: (_CSRC / f"{name}.cu", _CSRC / "resample2x.cuh")
            for name in ("upsample2x", "downsample2x")}
 
 Taps = Tuple[float, float, float, float]
@@ -108,6 +111,108 @@ def downsample2d_plain(x: torch.Tensor, taps: Taps) -> torch.Tensor:
             + g2 * vp[..., 2:w + 2:2] + g3 * vp[..., 3:w + 3:2])
 
 
+# ------------------------------------------------------ B1's and B2's plans
+
+# as csrc/resample2x.cuh, csrc/upsample2x.cu and csrc/downsample2x.cu take
+# them; the C entries refuse a plan with other values
+RESAMPLE_THREADS = 128   # threads a block
+# rows of the smaller plane a thread walks: one where the plane has at most
+# SMALL_PLANE_ROWS rows (the call is a launch and one memory round trip,
+# and the shortest chain of work a thread wins), two above it (fewer,
+# fuller threads; each row window shared by two rows)
+SMALL_PLANE_ROWS = 16
+WARP = 32
+PLAN_REFUSED = -1        # what a C entry returns for a plan it refuses
+
+
+@dataclass(frozen=True)
+class ResamplePlan:
+    """How B1 or B2 divides `planes` planes of (h, w) among threads; (h, w)
+    is the smaller plane: B1's input, B2's output. Thread (pair, strip,
+    plane) owns columns 2·pair and 2·pair + 1 and rows [strip·rows,
+    strip·rows + rows) of it, clipped to the plane: B1 writes the 2×2
+    output quads of those input pixels, B2 those output pixels.
+
+    A block is tx column pairs × ty row strips × ps plane slots
+    (threadIdx.x, .y, .z) and the grid its tiles: pair = blockIdx.x·tx +
+    threadIdx.x, strip = blockIdx.y·ty + threadIdx.y, plane = blockIdx.z·ps +
+    threadIdx.z. tx is a power of two no larger than a warp, so a warp holds
+    whole segments of tx lanes in one row strip of one plane: a lane's
+    shuffle neighbours are its neighbouring column pairs except at the
+    segment's first and last lane, which load their halo column themselves.
+    Small planes share a block (ps > 1)."""
+
+    planes: int
+    h: int
+    w: int
+    rows: int
+    tx: int
+    ty: int
+    ps: int
+
+    @property
+    def pairs(self) -> int:
+        return -(-self.w // 2)
+
+    @property
+    def strips(self) -> int:
+        return -(-self.h // self.rows)
+
+    @property
+    def block(self) -> Tuple[int, int, int]:
+        return self.tx, self.ty, self.ps
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (-(-self.pairs // self.tx), -(-self.strips // self.ty),
+                -(-self.planes // self.ps))
+
+    @property
+    def vector(self) -> bool:
+        """Whether the 8- and 16-byte path fits the shape (even widths:
+        whole column pairs and aligned rows); the pointers' alignment is
+        the wrapper's to check."""
+        return self.w % 2 == 0
+
+    def launch_args(self) -> Tuple[int, ...]:
+        """rows, tx, ty, ps, gx, gy, gz: the plan as the C entries take it."""
+        return (self.rows, *self.block, *self.grid)
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _resample_plan(planes: int, h: int, w: int) -> ResamplePlan:
+    """The plan over `planes` smaller planes of h × w: segments of up to a
+    warp of column pairs, then as many row strips as fill the block, then
+    as many plane slots."""
+    rows = 1 if h <= SMALL_PLANE_ROWS else 2
+    pairs, strips = -(-w // 2), -(-h // rows)
+    tx = min(_pow2_at_least(pairs), WARP)
+    ty = min(_pow2_at_least(strips), RESAMPLE_THREADS // tx)
+    return ResamplePlan(planes, h, w, rows, tx, ty,
+                        RESAMPLE_THREADS // (tx * ty))
+
+
+def upsample_plan(planes: int, h: int, w: int) -> ResamplePlan:
+    """B1's plan for `planes` input planes of h × w."""
+    return _resample_plan(planes, h, w)
+
+
+def downsample_plan(planes: int, h: int, w: int) -> ResamplePlan:
+    """B2's plan for `planes` input planes of h × w (even): the plan over
+    its h/2 × w/2 outputs."""
+    return _resample_plan(planes, h // 2, w // 2)
+
+
+# ------------------------------------------------------------------ launches
+
+# the bytes of a thread's widest load of x on the vector path: B1 loads a
+# float2 of input columns, B2 a float4
+_X_ALIGN = {"upsample2x": 8, "downsample2x": 16}
+
+
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     """The kernel library `name` (upsample2x or downsample2x), built from
@@ -119,43 +224,51 @@ def _library(name: str) -> ctypes.CDLL:
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, *[ctypes.c_int] * 8, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
 def _launch(name: str, x: torch.Tensor, out_hw: Tuple[int, int],
-            h: int, w: int, taps: Taps) -> torch.Tensor:
-    """Launch kernel `name` on contiguous float32 CUDA planes `x` and return
-    its [N, C, *out_hw] output; (h, w) is the smaller plane, as the C entry
-    takes it."""
+            plan: ResamplePlan, taps: Taps) -> torch.Tensor:
+    """Launch kernel `name` on contiguous float32 CUDA planes `x` over
+    `plan` and return its [N, C, *out_hw] output."""
     n, c = x.shape[:2]
     y = torch.empty((n, c, *out_hw), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return y
+    vec = plan.vector and x.data_ptr() % _X_ALIGN[name] == 0
     fn = getattr(_library(name), f"stylemc_{name}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, *taps, stream)
+        err = fn(x.data_ptr(), y.data_ptr(), plan.planes, plan.h, plan.w,
+                 *taps, *plan.launch_args(), int(vec), stream)
+    if err == PLAN_REFUSED:
+        raise ValueError(f"{name}: the kernel refuses {plan} (CUDA's grid "
+                         "limits or 32-bit plane offsets)")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return y
 
 
 def launch_upsample(x: torch.Tensor, taps: Taps) -> torch.Tensor:
-    """B1 on a contiguous float32 CUDA tensor [N, C, H, W] → [N, C, 2H, 2W];
-    counts the launch on `upsample2d_kernel.launches`."""
-    h, w = x.shape[2:]
-    y = _launch("upsample2x", x, (2 * h, 2 * w), h, w, taps)
+    """B1 on a contiguous float32 CUDA tensor [N, C, H, W] → [N, C, 2H, 2W]
+    over `upsample_plan`; counts the launch on
+    `upsample2d_kernel.launches`."""
+    n, c, h, w = x.shape
+    y = _launch("upsample2x", x, (2 * h, 2 * w), upsample_plan(n * c, h, w),
+                taps)
     upsample2d_kernel.launches += 1
     return y
 
 
 def launch_downsample(x: torch.Tensor, taps: Taps) -> torch.Tensor:
-    """B2 on a contiguous float32 CUDA tensor [N, C, 2H, 2W] → [N, C, H, W];
-    counts the launch on `downsample2d_kernel.launches`."""
-    h, w = x.shape[2:]
-    y = _launch("downsample2x", x, (h // 2, w // 2), h // 2, w // 2, taps)
+    """B2 on a contiguous float32 CUDA tensor [N, C, 2H, 2W] → [N, C, H, W]
+    over `downsample_plan`; counts the launch on
+    `downsample2d_kernel.launches`."""
+    n, c, h, w = x.shape
+    y = _launch("downsample2x", x, (h // 2, w // 2),
+                downsample_plan(n * c, h, w), taps)
     downsample2d_kernel.launches += 1
     return y
 
