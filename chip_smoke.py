@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive stylemc_torch's serving and training paths and its fused-layer
-A/B on one CUDA card and check them.
+"""Drive stylemc_torch's serving, training and real-image editing paths
+and its fused-layer A/B on one CUDA card and check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -17,7 +17,9 @@ script exits non-zero:
   kernel  the launch floor (an empty kernel, stylemc_torch.bench.launch_floor,
           timed as the kernels are); B1 (upsample2x) against its plain torch
           version at every ToRGB chain shape of FFHQ-256 at batch 16, the
-          1024 px plane and two odd shapes; B2 (downsample2x) at the training
+          two larger planes of FFHQ-1024's chain at batch 16 ([16,3,256²],
+          [16,3,512²]; the e4e decoder's), the 1024 px plane and two odd
+          shapes; B2 (downsample2x) at the training
           step's backward shapes [4,3,2h,2h], the 1024 px plane and two odd
           shapes; both on an input 4 bytes off alignment; max |err| <= 1e-5;
           kernel, plain, library-call and bound times (device time: CUDA
@@ -77,13 +79,37 @@ script exits non-zero:
   parity  two seeds rendered on the card and on the CPU agree within ±1
   clis    generate_w → w_s_converter → find_direction → generate_fromS as
           subprocesses, each consuming the one before
+  e4e     real-image editing at the full width of e4e_ffhq_encode, random
+          weights from seeds, written by the port's own export
+          (e4e_fabricate): the IR-SE-50 Encoder4Editing (18 style heads,
+          256² input) and the rosinality FFHQ-1024 decoder (channel
+          multiplier 2, 8 mapping layers, no conv clamp; its ToRGB weights
+          scaled by 1/8 so renders stay mostly inside [-1, 1]); 8 seeded
+          256² PNG photos.
+          e4e_clis: infer_e4e --batch 4 --save_images → w_s_converter
+          --network decoder.pt → generate_fromS with a seeded direction, as
+          subprocesses.
+          e4e_serve: BatchEditor.from_files(decoder.pt, e4e_ckpt=...,
+          max_batch 16) + warmup, an HTTP server answering 4 POST
+          /edit_image and /stats; request seconds and p50. e4e_styles: the
+          editor's styles of the 8 photos against the CLI chain's, relative
+          L2 <= 1e-4. e4e_throughput: invert_images and edit_images (1024)
+          images/s at batch 4 and 16, peak memory. e4e_breakdown: one
+          batch-16 edit_images call's device time by kernel name, and its
+          encoder half (invert_images) and synthesis half (edit_styles)
+          profiled apart.
+          e4e_parity: 2 photos on the card and on the CPU: W+ codes
+          (PSP.encode) within relative L2 1e-4, edited renders (power 2)
+          within ±1 per uint8
 
 Each path that renders or trains (the HTTP requests, the throughput calls,
 the parity render on the card, the precompute, the training steps, the
-one-step parity, each CLI) is driven with every kernel's launch count set
-to 0 just before it and read just after; each must show B1 launched 6
-times per synthesis call, B2 6 times per backward pass, and B3/B4/B5 never
-(the generator runs the unfused layer, as the JAX generator does).
+one-step parity, each CLI, and each e4e path) is driven with every
+kernel's launch count set to 0 just before it and read just after; each
+must show B1 launched once per upper block of each synthesis call (6 at
+FFHQ-256, 8 at FFHQ-1024), B2 6 times per backward pass, and B3/B4/B5
+never (the generator runs the unfused layer, as the JAX generator does);
+the e4e encoder launches none of them.
 
 Then the card's nvidia-smi line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -119,6 +145,9 @@ CHAIN_SHAPES = [(16, 3, h, h) for h in (4, 8, 16, 32, 64, 128)]
 # the 1024 px plane, and two odd shapes, the second an odd width (B1's
 # 4-byte path)
 EXTRA_SHAPES = [(1, 3, 512, 512), (2, 5, 6, 10), (2, 5, 7, 9)]
+# with CHAIN_SHAPES, the ToRGB chain of one batch-16 FFHQ-1024 synthesis
+# call (the e4e decoder's, served at max_batch 16)
+E4E_CHAIN_EXTRA = [(16, 3, 256, 256), (16, 3, 512, 512)]
 # B2's inputs in one training step's backward (batch 4): the cotangent of
 # each upsample of the ToRGB chain
 TRAIN_DOWN_SHAPES = [(4, 3, 2 * h, 2 * h) for h in (4, 8, 16, 32, 64, 128)]
@@ -374,7 +403,8 @@ def phase_kernel(torch):
                          lambda x: downsample2d_plain(x, down_taps))})
     return floor_ms, {
         "upsample2x": _kernel_rows(
-            torch, "upsample2x", CHAIN_SHAPES + EXTRA_SHAPES,
+            torch, "upsample2x",
+            CHAIN_SHAPES + E4E_CHAIN_EXTRA + EXTRA_SHAPES,
             upsample2d_kernel, launch_upsample, upsample2d_plain, up_taps,
             upsample_bound, library_upsample, up_taps,
             lambda s: upsample_plan(s[0] * s[1], s[2], s[3]), floor_ms),
@@ -1300,6 +1330,23 @@ print(json.dumps({k: c.launches for k, c in counters.items()}))
 """
 
 
+def run_cli(paths, cfg, path, name, synthesis_calls, backward_calls, *args):
+    """Run `stylemc_torch.cli.<name>` in a subprocess and hold the launch
+    counts it reports to `record_launches` under `path`; (seconds,
+    stdout)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_RUNNER,
+                           f"stylemc_torch.cli.{name}", *args], cwd=ROOT,
+                          timeout=600, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name} exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    launches = json.loads(proc.stdout.strip().splitlines()[-1])
+    record_launches(paths, cfg, path, launches, synthesis_calls,
+                    backward_calls)
+    return time.perf_counter() - t0, proc.stdout
+
+
 def phase_clis(editor, net, direction, tmp, paths):
     import numpy as np
 
@@ -1307,17 +1354,8 @@ def phase_clis(editor, net, direction, tmp, paths):
         S_TRAINABLE_SPACE_CHANNELS)
 
     def run(name, synthesis_calls, backward_calls, *args):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", CLI_RUNNER,
-                               f"stylemc_torch.cli.{name}", *args], cwd=ROOT,
-                              timeout=600, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name} exited {proc.returncode}:\n"
-                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
-        launches = json.loads(proc.stdout.strip().splitlines()[-1])
-        record_launches(paths, editor.cfg, f"cli_{name}", launches,
-                        synthesis_calls, backward_calls)
-        return time.perf_counter() - t0, proc.stdout
+        return run_cli(paths, editor.cfg, f"cli_{name}", name,
+                       synthesis_calls, backward_calls, *args)
 
     w_file = os.path.join(tmp, "projected_w.npz")
     s_file = os.path.join(tmp, "input.npz")
@@ -1375,6 +1413,344 @@ def phase_clis(editor, net, direction, tmp, paths):
           "max_abs_s_diff": float(np.abs(s - ref).max()), "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"CLI checks failed: {checks}")
+
+
+# ----------------------------------------------------------------- e4e
+
+E4E_SIZE = 1024
+E4E_SEEDS = {"encoder": 3, "decoder": 4, "latent_avg": 5, "photos": 6,
+             "direction": 7}
+# the ToRGB weights of the seeded decoder are scaled by this, so that its
+# renders lie mostly inside [-1, 1] and the uint8 comparison reads values,
+# not the clip at 0 and 255
+E4E_TORGB_SCALE = 0.125
+E4E_PHOTOS = 8
+E4E_MAX_BATCH = 16
+E4E_CODE_REL_L2 = 1e-4
+E4E_PROMPT = "smiling face"
+
+
+def make_e4e(torch, tmp):
+    """e4e_ffhq_encode at full width, with random weights from seeds,
+    written by the port's own export: the IR-SE-50 Encoder4Editing (24
+    bottlenecks, 18 style heads) and the rosinality FFHQ-1024 decoder
+    (channel multiplier 2, 8 mapping layers, no conv clamp) in one
+    checkpoint (`save_e4e_pt`), the decoder also alone (`save_rosinality_pt`);
+    latent_avg is the mean w of 4096 seeded z. Eight seeded 256² PNG
+    photos and a seeded direction npz beside them."""
+    import numpy as np
+    from PIL import Image
+
+    from stylemc_torch.io.export import save_e4e_pt, save_rosinality_pt
+    from stylemc_torch.io.rosinality import config_for_rosinality
+    from stylemc_torch.models.e4e.encoders import init_encoder_params
+    from stylemc_torch.models.stylegan2.generator import (
+        S_TRAINABLE_SPACE_CHANNELS, init_generator_params, mapping)
+
+    def gen(key):
+        return torch.Generator().manual_seed(E4E_SEEDS[key])
+
+    t0 = time.perf_counter()
+    enc = init_encoder_params(gen("encoder"), E4E_SIZE, device="cpu")
+    dcfg = config_for_rosinality(E4E_SIZE)
+    dec = init_generator_params(gen("decoder"), dcfg, device="cpu")
+    for bp in dec["synthesis"].values():
+        bp["torgb"]["weight"] *= E4E_TORGB_SCALE
+    with torch.inference_mode():
+        z = torch.randn((4096, dcfg.z_dim), generator=gen("latent_avg"))
+        dec["mapping"]["w_avg"] = mapping(dec, dcfg, z)[:, 0].mean(dim=0)
+    ckpt = save_e4e_pt(os.path.join(tmp, "e4e_ffhq_encode.pt"), enc, dcfg,
+                       dec, dec["mapping"]["w_avg"])
+    decoder = save_rosinality_pt(os.path.join(tmp, "ffhq1024.pt"), dcfg, dec)
+    photos = os.path.join(tmp, "photos")
+    os.makedirs(photos)
+    rs = np.random.RandomState(E4E_SEEDS["photos"])
+    for i in range(E4E_PHOTOS):
+        # a smooth random field, bicubic from 8x8, plus pixel noise
+        low = Image.fromarray((rs.rand(8, 8, 3) * 255).astype(np.uint8))
+        img = np.asarray(low.resize((256, 256), Image.BICUBIC), np.float32)
+        img = np.clip(img + rs.randn(256, 256, 3) * 8, 0, 255)
+        Image.fromarray(img.astype(np.uint8), "RGB").save(
+            os.path.join(photos, f"photo{i}.png"))
+    d = np.zeros((1, 26, 512), np.float32)
+    rs = np.random.RandomState(E4E_SEEDS["direction"])
+    for row in S_TRAINABLE_SPACE_CHANNELS:
+        d[:, row] = rs.randn(512).astype(np.float32) * 0.5
+    outdir = os.path.join(tmp, "e4e_edits")
+    os.makedirs(outdir)
+    direction = os.path.join(
+        outdir, f"direction_{E4E_PROMPT.replace(' ', '_')}.npz")
+    np.savez(direction, s=d)
+    emit({"phase": "e4e_fabricate", "seconds": time.perf_counter() - t0,
+          "checkpoint_bytes": os.path.getsize(ckpt),
+          "decoder_bytes": os.path.getsize(decoder),
+          "decoder": {"img_resolution": dcfg.img_resolution,
+                      "channel_base": dcfg.channel_base,
+                      "channel_max": dcfg.channel_max,
+                      "mapping_layers": dcfg.mapping_layers,
+                      "conv_clamp": dcfg.conv_clamp}})
+    return ckpt, decoder, photos, direction, outdir
+
+
+def _read_photos(photos):
+    import numpy as np
+    from PIL import Image
+
+    return np.stack([np.asarray(Image.open(os.path.join(photos, f)), np.uint8)
+                     for f in sorted(os.listdir(photos))])
+
+
+def phase_e4e_clis(ckpt, decoder, photos, outdir, tmp, paths):
+    """infer_e4e → w_s_converter → generate_fromS as subprocesses, each
+    reading the one before: 8 photos inverted at batch 4 with their
+    reconstructions (two 1024 synthesis calls), their codes turned into
+    styles by the decoder, the seeded direction rendered on them (8 items
+    in one batch, original and edit: two synthesis calls)."""
+    import numpy as np
+
+    from stylemc_torch.io.rosinality import config_for_rosinality
+
+    cfg = config_for_rosinality(E4E_SIZE)
+    inv = os.path.join(tmp, "e4e_inversion")
+    s_file = os.path.join(tmp, "e4e_input.npz")
+    calls = -(-E4E_PHOTOS // 4)
+    def run(name, synthesis_calls, *args):
+        return run_cli(paths, cfg, f"e4e_cli_{name}", name, synthesis_calls,
+                       0, *args)
+
+    secs, outs = zip(*[
+        run("infer_e4e", calls, "--images_dir", photos, "--ckpt", ckpt,
+            "--save_dir", inv, "--stylegan_size", str(E4E_SIZE), "--batch",
+            "4", "--save_images"),
+        run("w_s_converter", 0, "--network", decoder, "--projected-w",
+            os.path.join(inv, "projected_w.npz"), "--out_file", s_file),
+        run("generate_fromS", 2, "--network", decoder, "--s_input", s_file,
+            "--outdir", outdir, "--text_prompt", E4E_PROMPT)])
+    w, s = np.load(os.path.join(inv, "projected_w.npz"))["w"], \
+        np.load(s_file)["s"]
+    recon = sorted(os.listdir(os.path.join(inv, "inversions")))
+    tag = E4E_PROMPT.replace(" ", "_")
+    jpegs = sorted(f for f in os.listdir(outdir) if f.endswith(".jpeg"))
+    imgs = []
+    for name in jpegs:
+        with open(os.path.join(outdir, name), "rb") as fh:
+            imgs.append(_decode(fh.read()))
+    res = E4E_SIZE
+    checks = {
+        "w_shape": w.shape == (E4E_PHOTOS, cfg.num_ws, 512),
+        "w_finite": bool(np.isfinite(w).all()),
+        "s_shape": s.shape == (E4E_PHOTOS, 26, 512),
+        "reconstructions": recon == sorted(os.listdir(photos)),
+        "jpeg_names": jpegs == [f"{tag}_{i:03d}.jpeg"
+                                for i in range(E4E_PHOTOS)],
+        "jpeg_shapes": all(a.shape == (res, 2 * res, 3) for a in imgs),
+        "left_ne_right": all(np.abs(a[:, :res].astype(int)
+                                    - a[:, res:].astype(int)).max() > 0
+                             for a in imgs),
+    }
+    emit({"phase": "e4e_clis", "seconds": list(secs),
+          "launches": {k: v["launches"] for k, v in paths.items()
+                       if k.startswith("e4e_cli_")},
+          "infer_e4e_tail": outs[0].strip().splitlines()[-3:],
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"e4e CLI checks failed: {checks}")
+    return s
+
+
+def phase_e4e_serve(torch, ckpt, decoder, photos, direction, cli_styles,
+                    smi, paths):
+    """BatchEditor.from_files(the rosinality decoder, e4e_ckpt=...), warmup,
+    then an HTTP server that answers four POST /edit_image requests and
+    /stats; the editor's styles of the 8 photos against the CLI chain's
+    (relative L2 1e-4: the two map uint8 to [-1, 1] with other roundings);
+    invert_images and edit_images images/s; one batch-16 edit_images
+    call's device time, its encoder half (invert_images) and its synthesis
+    half (edit_styles of those styles) profiled apart, by kernel name."""
+    import numpy as np
+
+    from stylemc_torch.bench.timing import card_state
+    from stylemc_torch.cli.serve import build_server
+    from stylemc_torch.serve import BatchEditor
+
+    t0 = time.perf_counter()
+    editor = BatchEditor.from_files(decoder, direction=direction,
+                                    e4e_ckpt=ckpt, max_batch=E4E_MAX_BATCH,
+                                    device="cuda")
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    editor.warmup()
+    warmup_s = time.perf_counter() - t0
+    res = editor.cfg.img_resolution
+    server, service = build_server(editor, host="127.0.0.1", port=0,
+                                   coalesce_ms=3.0, max_batch=E4E_MAX_BATCH)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    names = sorted(os.listdir(photos))
+
+    def post(i, query):
+        with open(os.path.join(photos, names[i]), "rb") as fh:
+            req = urllib.request.Request(
+                f"{base}/edit_image?{query}", data=fh.read(), method="POST",
+                headers={"Content-Type": "image/png"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            out = r.status, r.headers.get("Content-Type"), r.read()
+        return out, time.perf_counter() - t0
+
+    queries = ["power=2.0&pairs=1", "power=2.0", "power=1.0&pairs=1",
+               "power=-1.0"]
+
+    def requests():
+        return [post(i, q) for i, q in enumerate(queries)]
+
+    try:
+        replies, launches = count_launches(requests)
+        st, _, body = _get(f"{base}/stats")
+        stats = json.loads(body)
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("HTTP server thread did not stop")
+    imgs = [_decode(r[0][2]) for r in replies]
+    pairs = ["pairs=1" in q for q in queries]
+    checks = {
+        "status_200": all(r[0][0] == 200 for r in replies) and st == 200,
+        "jpeg": all(r[0][1] == "image/jpeg" for r in replies),
+        "shapes": all(a.shape == (res, (2 if p else 1) * res, 3)
+                      for a, p in zip(imgs, pairs)),
+        "left_ne_right": all(np.abs(a[:, :res].astype(int)
+                                    - a[:, res:].astype(int)).max() > 0
+                             for a, p in zip(imgs, pairs) if p),
+        "stats": stats.get("requests") == 4 and stats.get("errors") == 0,
+    }
+    request_s = [r[1] for r in replies]
+    emit({"phase": "e4e_serve", "card": smi, "launches": launches,
+          "load_s": load_s, "warmup_s": warmup_s, "request_s": request_s,
+          "request_p50_s": statistics.median(request_s), "stats": stats,
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"e4e serve checks failed: {checks}")
+    record_launches(paths, editor.cfg, "e4e_http", launches,
+                    sum(2 if p else 1 for p in pairs))
+
+    batch = _read_photos(photos)
+    served, launches = count_launches(
+        lambda: editor.invert_images(batch).cpu())
+    record_launches(paths, editor.cfg, "e4e_styles", launches, 0)
+    styles_rel = float((served - torch.from_numpy(cli_styles)).norm()
+                       / served.norm())
+    emit({"phase": "e4e_styles", "rel_l2_against_cli": styles_rel})
+    if not styles_rel <= E4E_CODE_REL_L2:
+        raise AssertionError(f"served styles vs the CLI chain's: relative "
+                             f"L2 {styles_rel}")
+    batch = np.concatenate([batch] * -(-E4E_MAX_BATCH // len(batch)))
+    torch.cuda.reset_peak_memory_stats()
+    rates = {"invert_images": {}, "edit_images": {}}
+
+    def timed(fn, b):
+        fn()
+        times = []
+        before = card_state()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            if isinstance(out, torch.Tensor):
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return {"images_per_s": [b / t for t in times],
+                "median_images_per_s": b / statistics.median(times),
+                "card_state": [before, card_state()]}
+
+    def invert():
+        for b in (4, E4E_MAX_BATCH):
+            rates["invert_images"][str(b)] = timed(
+                lambda: editor.invert_images(batch[:b]), b)
+
+    def edit():
+        for b in (4, E4E_MAX_BATCH):
+            rates["edit_images"][str(b)] = timed(
+                lambda: editor.edit_images(batch[:b]), b)
+
+    _, inv_launches = count_launches(invert)
+    record_launches(paths, editor.cfg, "e4e_invert", inv_launches, 0)
+    _, edit_launches = count_launches(edit)
+    # 4 calls a batch, each one pipeline chunk: one synthesis call
+    record_launches(paths, editor.cfg, "e4e_edit_images", edit_launches, 8)
+    emit({"phase": "e4e_throughput", "card": smi, "precision": "fp32",
+          "max_batch": E4E_MAX_BATCH,
+          "up_conv_impl": editor.cfg.up_conv_impl,
+          "synthesis_flop_per_image": synthesis_flop(editor.cfg),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "launches": {"invert": inv_launches, "edit": edit_launches},
+          **rates})
+
+    b16 = batch[:E4E_MAX_BATCH]
+    styles = editor.invert_images(b16)
+    whole = device_breakdown(torch, lambda: editor.edit_images(b16))
+    encoder = device_breakdown(torch, lambda: editor.invert_images(b16))
+    synth = device_breakdown(torch, lambda: editor.edit_styles(styles))
+    split = encoder["device_busy_ms"] + synth["device_busy_ms"]
+    emit({"phase": "e4e_breakdown", "card": smi, "batch": E4E_MAX_BATCH,
+          "edit_images": whole, "encoder": encoder, "synthesis": synth,
+          "encoder_share": encoder["device_busy_ms"] / split,
+          "split_over_whole": split / whole["device_busy_ms"]})
+    return editor
+
+
+def phase_e4e_parity(torch, editor, ckpt, decoder, photos, direction,
+                     paths):
+    """Two photos on the card and on the CPU: W+ codes (PSP.encode) within
+    relative L2 1e-4, edited renders (edit_images, power 2) within ±1."""
+    import numpy as np
+
+    from stylemc_torch.models.e4e.psp import load_psp_from_checkpoint
+    from stylemc_torch.serve import BatchEditor
+
+    two = _read_photos(photos)[:2]
+    x = torch.from_numpy(two).permute(0, 3, 1, 2).float() / 127.5 - 1.0
+    codes = {}
+    for dev in ("cuda", "cpu"):
+        model = load_psp_from_checkpoint(ckpt, E4E_SIZE, device=dev)
+        with torch.inference_mode():
+            codes[dev] = model.encode(x.to(dev)).cpu()
+        del model
+    code_rel = float((codes["cuda"] - codes["cpu"]).norm()
+                     / codes["cpu"].norm())
+    cpu = BatchEditor.from_files(decoder, direction=direction, e4e_ckpt=ckpt,
+                                 max_batch=2, device="cpu")
+    t0 = time.perf_counter()
+    want, cpu_launches = count_launches(
+        lambda: cpu.edit_images(two, change_power=2.0))
+    cpu_s = time.perf_counter() - t0
+    got, launches = count_launches(
+        lambda: editor.edit_images(two, change_power=2.0))
+    diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+    emit({"phase": "e4e_parity", "code_rel_l2": code_rel,
+          "code_max_abs": float(codes["cpu"].abs().max()),
+          "max_abs_u8_diff": diff, "cpu_s": cpu_s,
+          "shape": list(got.shape),
+          "saturated_share": float(np.mean((want == 0) | (want == 255))),
+          "launches": launches, "cpu_launches": cpu_launches})
+    if any(cpu_launches.values()):
+        raise AssertionError("the CPU render launched a CUDA kernel")
+    if not code_rel <= E4E_CODE_REL_L2:
+        raise AssertionError(f"card vs CPU codes: relative L2 {code_rel}")
+    if diff > 1:
+        raise AssertionError(f"card vs CPU e4e renders differ by {diff}")
+    record_launches(paths, editor.cfg, "e4e_parity", launches, 1)
+
+
+def phase_e4e(torch, tmp, smi, paths):
+    ckpt, decoder, photos, direction, outdir = make_e4e(torch, tmp)
+    cli_styles = phase_e4e_clis(ckpt, decoder, photos, outdir, tmp, paths)
+    editor = phase_e4e_serve(torch, ckpt, decoder, photos, direction,
+                             cli_styles, smi, paths)
+    phase_e4e_parity(torch, editor, ckpt, decoder, photos, direction, paths)
 
 
 def perception_models(torch):
@@ -1802,6 +2178,9 @@ def main() -> int:
         editor = phase_serve(torch, net, direction, smi, paths)
         phase_parity(editor, net, direction, paths)
         phase_clis(editor, net, direction, tmp, paths)
+        del editor
+        torch.cuda.empty_cache()
+        phase_e4e(torch, tmp, smi, paths)
 
     timed = {"upsample2x": CHAIN_SHAPES, "downsample2x": TRAIN_DOWN_SHAPES}
     sources = {"upsample2x": ("upfirdn2d_pallas.py:132", "_upsample2x_core"),
@@ -1845,6 +2224,13 @@ def main() -> int:
                          "wrapper_event_ms CUDA events over back-to-back "
                          "wrapper calls (host cost included)",
             "card": smi})
+        if name == "upsample2x":
+            # one batch-16 FFHQ-1024 synthesis call: the e4e decoder's
+            e4e = [r for r in rows if tuple(r["shape"]) in
+                   CHAIN_SHAPES + E4E_CHAIN_EXTRA]
+            kernels[-1].update({f"ffhq1024_b16_{k}": sum(r[k] for r in e4e)
+                                for k in ("kernel_ms", "plain_ms",
+                                          "bound_ms", "library_ms")})
     kernels += modconv_entries(modconv_rows, paths, smi, mma_rate)
     print(smi, flush=True)
     emit({"kernels": kernels})

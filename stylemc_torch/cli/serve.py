@@ -8,12 +8,18 @@ Endpoints:
   GET /healthz                  → 200 "ok"
   GET /edit?seeds=1-4&power=2.0[&pairs=1][&direction=NAME][&format=png]
                                 → image grid (vertical stack) of edits
+  POST /edit_image?power=2.0[&pairs=1][&direction=NAME][&format=png]
+       body: one JPEG/PNG photo (at most 32 MB), resized bicubic to 256²
+                                → its e4e inversion, edited and rendered
+                                  (needs --e4e_ckpt; 400 without)
   GET /directions               → JSON list of named directions
   GET /stats                    → JSON request counters + latency summary
 
 Usage:
   python -m stylemc_torch.cli.serve --network ffhq.npz \
       --direction runs/m2f/direction_x.npz --port 8080
+  python -m stylemc_torch.cli.serve --network decoder.pt \
+      --direction runs/m2f/direction_x.npz --e4e_ckpt e4e_ffhq_encode.pt
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ from urllib.parse import parse_qs, urlparse
 
 import click
 import numpy as np
+
+
+MAX_BODY_BYTES = 32 * 1024 * 1024
 
 
 def _parse_seeds(spec: str):
@@ -81,6 +90,19 @@ class EditService:
             seeds, change_power=power, pairs=pairs,
             direction_name=direction_name))
 
+    def edit_images(self, imgs_u8: np.ndarray, power: float, pairs: bool,
+                    direction_name=None) -> np.ndarray:
+        if self._dispatcher is not None:
+            return self._timed(lambda: self._dispatcher.submit(
+                ("image", power, pairs, direction_name),
+                np.asarray(imgs_u8),
+                lambda batch: self.editor.edit_images(
+                    batch, change_power=power, pairs=pairs,
+                    direction_name=direction_name)))
+        return self._timed(lambda: self.editor.edit_images(
+            imgs_u8, change_power=power, pairs=pairs,
+            direction_name=direction_name))
+
     def record_error(self) -> None:
         with self._lock:
             self.errors += 1
@@ -103,7 +125,8 @@ class EditService:
 
 
 def _edit_query(q):
-    """/edit params → (power, pairs, fmt, direction name)."""
+    """/edit and /edit_image params → (power, pairs, fmt, direction
+    name)."""
     return (float(q.get("power", ["2.0"])[0]),
             q.get("pairs", ["0"])[0] not in ("0", "false"),
             q.get("format", ["jpeg"])[0].lower(),
@@ -157,6 +180,33 @@ def make_handler(service: EditService):
                 service.record_error()
                 self._send(500, f"error: {e}".encode())
 
+        def do_POST(self):
+            url = urlparse(self.path)
+            try:
+                if url.path != "/edit_image":
+                    self._send(404, b"not found")
+                    return
+                if not service.editor.has_inverter:
+                    self._send(400, b"no e4e inverter loaded (--e4e_ckpt)")
+                    return
+                length = int(self.headers.get("Content-Length", "0"))
+                if not 0 < length <= MAX_BODY_BYTES:
+                    self._send(400, b"need a JPEG/PNG body (max 32 MB)")
+                    return
+                from PIL import Image
+                img = Image.open(io.BytesIO(
+                    self.rfile.read(length))).convert("RGB")
+                # the e4e eval transform's size; align faces beforehand
+                img = img.resize((256, 256), Image.BICUBIC)
+                power, pairs, fmt, dname = _edit_query(parse_qs(url.query))
+                out = service.edit_images(
+                    np.asarray(img, np.uint8)[None], power, pairs,
+                    direction_name=dname)
+                self._send_image(out[0], fmt)
+            except Exception as e:  # noqa: BLE001 — serving must not die
+                service.record_error()
+                self._send(500, f"error: {e}".encode())
+
     return Handler
 
 
@@ -169,11 +219,15 @@ def build_server(editor, host: str = "127.0.0.1", port: int = 8080,
 
 
 @click.command()
-@click.option("--network", required=True, help="NVIDIA .pkl or native .npz")
+@click.option("--network", required=True,
+              help="NVIDIA .pkl, native .npz or rosinality .pt")
 @click.option("--direction", type=str, default=None)
 @click.option("--directions", type=str, multiple=True, metavar="NAME=PATH",
               help="named direction, repeatable; select per request via "
                    "/edit?direction=NAME")
+@click.option("--e4e_ckpt", type=str, default=None,
+              help="e4e checkpoint: enables POST /edit_image (photo → "
+                   "invert → edit → render in one request)")
 @click.option("--host", type=str, default="127.0.0.1", show_default=True)
 @click.option("--port", type=int, default=8080, show_default=True)
 @click.option("--max_batch", type=int, default=64, show_default=True)
@@ -186,8 +240,8 @@ def build_server(editor, host: str = "127.0.0.1", port: int = 8080,
                    "within this window into one batched dispatch; 0 "
                    "disables (serial lock)")
 @click.option("--device", default="cuda", show_default=True)
-def main(network, direction, directions, host, port, max_batch, precision,
-         warmup, coalesce_ms, device):
+def main(network, direction, directions, e4e_ckpt, host, port, max_batch,
+         precision, warmup, coalesce_ms, device):
     from ..serve import BatchEditor
 
     zoo = {}
@@ -198,8 +252,8 @@ def main(network, direction, directions, host, port, max_batch, precision,
         zoo[name] = path
     editor = BatchEditor.from_files(network, direction=direction,
                                     directions=zoo or None,
-                                    max_batch=max_batch, precision=precision,
-                                    device=device)
+                                    e4e_ckpt=e4e_ckpt, max_batch=max_batch,
+                                    precision=precision, device=device)
     if warmup:
         print("warming up (every batch bucket)...")
         editor.warmup()

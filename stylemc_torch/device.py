@@ -18,3 +18,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
     return dev
+
+
+def disable_tf32(device: torch.device) -> None:
+    """On a CUDA device, turn TF32 off for cuDNN convolutions and matmuls
+    (process-wide torch flags): cuDNN runs fp32 convolutions in TF32 by
+    default, which drifts from fp32. The fp32 entry points call it."""
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

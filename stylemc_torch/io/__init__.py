@@ -6,6 +6,9 @@ from .pickle_loader import (
     load_generator,
 )
 from .native import load_native, save_native
+from .torch_state import load_state_dict_numpy, strip_prefix
+from .export import (ada_to_rosinality_state, encoder_to_torch_state,
+                     save_rosinality_pt, save_e4e_pt)
 
 __all__ = [
     "EasyDict",
@@ -15,4 +18,10 @@ __all__ = [
     "load_generator",
     "load_native",
     "save_native",
+    "load_state_dict_numpy",
+    "strip_prefix",
+    "ada_to_rosinality_state",
+    "encoder_to_torch_state",
+    "save_rosinality_pt",
+    "save_e4e_pt",
 ]

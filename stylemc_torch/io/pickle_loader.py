@@ -10,7 +10,8 @@ by name.
 Entry points:
   load_network_pkl(f)         → {'G': Stub, 'D': Stub, 'G_ema': Stub, ...}
   generator_from_stub(stub)   → (GeneratorConfig, numpy params tree)
-  load_generator(path)        → (GeneratorConfig, torch params) for G_ema
+  load_generator(path)        → (GeneratorConfig, torch params) for G_ema,
+                                or from a native .npz / rosinality .pt
 """
 
 from __future__ import annotations
@@ -282,14 +283,14 @@ def generator_from_stub(stub: PersistentStub, force_fp16: bool = False
 
 def load_generator(path, key: str = "G_ema", force_fp16: bool = False,
                    device: DeviceLike = None) -> Tuple[GeneratorConfig, Dict]:
-    """(config, torch params on `device`) from an NVIDIA .pkl or a native
-    .npz. Rosinality .pt checkpoints are not supported yet."""
+    """(config, torch params on `device`) from an NVIDIA .pkl, a native
+    .npz or a rosinality .pt/.pth."""
     if isinstance(path, str) and path.endswith(".npz"):
         from .native import load_native
         return load_native(path, device=device)
     if isinstance(path, str) and path.endswith((".pt", ".pth")):
-        raise ValueError(f"{path!r}: rosinality .pt checkpoints are not "
-                         "supported by stylemc_torch yet")
+        from .rosinality import load_rosinality_pt
+        return load_rosinality_pt(path, device=device)
     data = load_network_pkl(path)
     stub = data[key]
     if not isinstance(stub, PersistentStub):

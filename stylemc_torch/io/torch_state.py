@@ -1,6 +1,6 @@
 """Read torch `.pth`/`.pt` state dicts into numpy without running pickled
-code (`torch.load(weights_only=True)`): the ArcFace checkpoint import
-(counterpart of `stylemc_tpu/io/torch_state.py`)."""
+code (`torch.load(weights_only=True)`): the ArcFace and e4e checkpoint
+imports (counterpart of `stylemc_tpu/io/torch_state.py`)."""
 
 from __future__ import annotations
 
@@ -30,3 +30,11 @@ def load_state_dict_numpy(path: str, key: Optional[str] = None
         elif isinstance(val, np.ndarray):
             out[name] = val
     return out
+
+
+def strip_prefix(state: Dict[str, np.ndarray], prefix: str
+                 ) -> Dict[str, np.ndarray]:
+    """The entries under `prefix`, with it stripped: the e4e checkpoint's
+    `encoder.` / `decoder.` split."""
+    plen = len(prefix)
+    return {k[plen:]: v for k, v in state.items() if k.startswith(prefix)}

@@ -6,6 +6,7 @@ IR-SE-50: 3x3 stem conv + BN + PReLU, four stages of bottleneck_IR_SE units
 strided-identity shortcut), then BN → flatten → Linear(512·7·7→512) →
 BN1d(affine=False) → L2 normalize. Inference mode (running BN statistics,
 dropout off) and differentiable: it is the identity loss of find_direction.
+The stem and bottlenecks (`body_apply`) are also the e4e encoders' body.
 
 Functions over a params dict with the JAX package's layout;
 `params_from_torch_state` maps the torch Sequential namespace
@@ -92,9 +93,11 @@ def _bottleneck_ir_se(p, x, in_c, depth, stride):
     return r + shortcut
 
 
-def backbone_apply(params, x: torch.Tensor, layout: Optional[Layout] = None
-                   ) -> torch.Tensor:
-    """x: [N, 3, S, S] in [-1, 1] → L2-normalized embeddings [N, 512].
+def body_apply(params, x: torch.Tensor, layout: Optional[Layout] = None,
+               taps: Sequence[int] = ()) -> Tuple[torch.Tensor, List]:
+    """The stem and the bottlenecks: x [N, 3, S, S] → (the last bottleneck's
+    output, [the output of bottleneck i for i in taps]). ArcFace reads the
+    first, the e4e encoders the taps (their FPN features).
 
     layout: (in_channel, depth, stride) per bottleneck; IR-SE-50 when None.
     The JAX package scans uniform runs of bottlenecks (`body_runs`); here
@@ -104,8 +107,19 @@ def backbone_apply(params, x: torch.Tensor, layout: Optional[Layout] = None
     x = _conv(x, p["input_conv_weight"], padding=1)
     x = _bn(p["input_bn"], x)
     x = _prelu(p["input_prelu"], x)
+    tapped = {}
     for i, (in_c, depth, stride) in enumerate(layout):
         x = _bottleneck_ir_se(p["body"][f"{i}"], x, in_c, depth, stride)
+        if i in taps:
+            tapped[i] = x
+    return x, [tapped[i] for i in taps]
+
+
+def backbone_apply(params, x: torch.Tensor, layout: Optional[Layout] = None
+                   ) -> torch.Tensor:
+    """x: [N, 3, S, S] in [-1, 1] → L2-normalized embeddings [N, 512]."""
+    p = params
+    x, _ = body_apply(p, x, layout)
     x = _bn(p["output_bn"], x)
     x = x.reshape(x.shape[0], -1)
     x = x @ p["output_linear"]["weight"].T.to(x.dtype) + \

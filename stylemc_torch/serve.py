@@ -9,6 +9,11 @@ Usage:
                                     direction="runs/m2f/direction_x.npz")
     imgs_u8 = editor.edit_seeds([1, 2, 3], change_power=2.0)
     pairs_u8 = editor.edit_styles(styles, change_power=1.5, pairs=True)
+
+Real photos (an e4e inverter attached):
+    editor = BatchEditor.from_files(network="decoder.pt", direction=...,
+                                    e4e_ckpt="e4e_ffhq_encode.pt")
+    edits_u8 = editor.edit_images(photos_u8_nhwc, change_power=2.0)
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 from .convert import params_from_numpy
-from .device import DeviceLike, resolve_device
+from .device import DeviceLike, disable_tf32, resolve_device
 from .edit import N_STYLE_CHANNELS, STYLE_DIM, to_u8_nhwc
 from .models.stylegan2.generator import (GeneratorConfig, inference_cfg,
                                          mapping, synthesis, w_to_s)
@@ -63,9 +68,8 @@ class BatchEditor:
         self.device = resolve_device(device)
         # forward-only service → pad_dilate up-convs
         self.cfg = inference_cfg(_apply_precision(gen_cfg, precision))
-        if precision == "fp32" and self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        if precision == "fp32":
+            disable_tf32(self.device)
         self.params = params_from_numpy(gen_params, self.device)
         self.direction = None if direction is None else self._on_device(
             direction)
@@ -73,6 +77,7 @@ class BatchEditor:
         self.directions: Dict[str, torch.Tensor] = {}
         self.truncation_psi = truncation_psi
         self.noise_mode = noise_mode
+        self._inverter = None  # set by attach_inverter
         self.buckets = [b for b in (1, 2, 4, 8, 16, 32, 64) if b <= max_batch]
         # Large requests render in pipeline_chunk sub-batches; each chunk's
         # uint8 result is copied to pinned host memory asynchronously, so the
@@ -104,6 +109,65 @@ class BatchEditor:
     def add_direction(self, name: str, direction) -> None:
         """Register a named direction for per-request selection."""
         self.directions[name] = self._on_device(direction)
+
+    def attach_inverter(self, psp) -> None:
+        """Enable real-image serving: uint8 photos → e4e W+ codes → this
+        generator's S space → edit → render, the composition of the
+        offline infer_e4e → w_s_converter → generate_fromS chain. The pSp
+        decoder is not used: codes become styles through the editor's own
+        generator, so named directions apply unchanged.
+
+        psp: a `models.e4e.psp.PSP` whose stylegan_size is this editor's
+        generator resolution."""
+        if psp.cfg.stylegan_size != self.cfg.img_resolution:
+            raise ValueError(
+                f"e4e encoder trained for {psp.cfg.stylegan_size}px, "
+                f"editor generator is {self.cfg.img_resolution}px")
+        # only encode() runs here: keep no decoder params on the device
+        self._inverter = dataclasses.replace(
+            psp, encoder_params=params_from_numpy(psp.encoder_params,
+                                                  self.device),
+            decoder_params={},
+            latent_avg=None if psp.latent_avg is None
+            else torch.as_tensor(psp.latent_avg, dtype=torch.float32,
+                                 device=self.device))
+
+    @property
+    def has_inverter(self) -> bool:
+        return self._inverter is not None
+
+    @torch.inference_mode()
+    def invert_images(self, images_u8) -> torch.Tensor:
+        """uint8 NHWC photos (256² for an e4e_ffhq_encode encoder) → S-space
+        styles [N, 26, 512] on the device, in bucketed, padded chunks of at
+        most max_batch. The uint8 → [-1, 1] map is x/127.5 - 1 (the e4e
+        eval transform)."""
+        if self._inverter is None:
+            raise ValueError("no inverter attached (attach_inverter / "
+                             "--e4e_ckpt)")
+        x = images_u8 if isinstance(images_u8, torch.Tensor) \
+            else torch.from_numpy(np.array(images_u8))
+        if x.dtype != torch.uint8 or x.ndim != 4 or x.shape[-1] != 3:
+            raise ValueError(f"expected uint8 [N,H,W,3], got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        outs = []
+        for lo in range(0, x.shape[0], self.buckets[-1]):
+            chunk = x[lo:lo + self.buckets[-1]].to(self.device)
+            n = chunk.shape[0]
+            chunk = self._pad(chunk, self._bucket(n))
+            img = chunk.permute(0, 3, 1, 2).float() / 127.5 - 1.0
+            codes = self._inverter.encode(img)
+            outs.append(w_to_s(self.params, self.cfg, codes)[:n])
+        return torch.cat(outs, dim=0)
+
+    def edit_images(self, images_u8, change_power: float = 2.0,
+                    pairs: bool = False,
+                    direction_name: Optional[str] = None) -> np.ndarray:
+        """Real photos in, edited renders out; pairs=True returns
+        [reconstruction | edited], the offline pipeline's two panels."""
+        return self.edit_styles(self.invert_images(images_u8),
+                                change_power=change_power, pairs=pairs,
+                                direction_name=direction_name)
 
     def _direction(self, name: Optional[str] = None) -> torch.Tensor:
         if name is not None:
@@ -185,8 +249,9 @@ class BatchEditor:
 
     def warmup(self):
         """Render every bucket a request can reach once (chunks of
-        pipeline_chunk pad up to their bucket), so first requests pay no
-        kernel build or library initialisation."""
+        pipeline_chunk pad up to their bucket), and invert every bucket when
+        an inverter is attached, so first requests pay no kernel build or
+        library initialisation."""
         step = min(self.pipeline_chunk or self.buckets[-1], self.buckets[-1])
         top = self._bucket(step)
         for b in self.buckets:
@@ -195,15 +260,21 @@ class BatchEditor:
             s = torch.zeros((b, N_STYLE_CHANNELS, STYLE_DIM),
                             device=self.device)
             self.edit_styles(s, change_power=0.0)
+        if self._inverter is not None:
+            for b in self.buckets:
+                self.invert_images(np.zeros((b, 256, 256, 3), np.uint8))
 
     # ------------------------------------------------------------- loading
 
     @classmethod
     def from_files(cls, network: str, direction: Optional[str] = None,
                    directions: Optional[Dict[str, str]] = None,
+                   e4e_ckpt: Optional[str] = None,
                    **kwargs) -> "BatchEditor":
-        """network: NVIDIA .pkl or native .npz; direction: npz with key 's';
-        directions: {name: path} registers named directions."""
+        """network: NVIDIA .pkl, native .npz or rosinality .pt; direction:
+        npz with key 's'; directions: {name: path} registers named
+        directions; e4e_ckpt attaches a real-image inverter (edit_images,
+        POST /edit_image)."""
         from .io import load_generator
 
         device = resolve_device(kwargs.pop("device", None))
@@ -212,6 +283,10 @@ class BatchEditor:
         editor = cls(cfg, params, direction=d, device=device, **kwargs)
         for name, path in (directions or {}).items():
             editor.add_direction(name, np.load(path)["s"])
+        if e4e_ckpt:
+            from .models.e4e.psp import load_psp_from_checkpoint
+            editor.attach_inverter(load_psp_from_checkpoint(
+                e4e_ckpt, stylegan_size=cfg.img_resolution, device=device))
         return editor
 
 

@@ -145,8 +145,19 @@ def test_legacy_cli_and_native_interchange(pkl_path, tmp_path):
     assert sorted(a.files) == sorted(b.files)
     for k in a.files:
         np.testing.assert_array_equal(a[k], b[k])
+    # --dest .pt writes the rosinality checkpoint the JAX package writes
+    import torch
+    from stylemc_tpu.io.export import save_rosinality_pt
+    _invoke(legacy, ["--source", pkl_path, "--dest", str(tmp_path / "x.pt")])
+    save_rosinality_pt(str(tmp_path / "jax.pt"), jcfg0, jparams0)
+    a, b = (torch.load(str(tmp_path / f), weights_only=True)
+            for f in ("x.pt", "jax.pt"))
+    assert sorted(a["g_ema"]) == sorted(b["g_ema"])
+    for k, v in b["g_ema"].items():
+        assert torch.equal(a["g_ema"][k], v), k
+    assert torch.equal(a["latent_avg"], b["latent_avg"])
     r = CliRunner().invoke(legacy, ["--source", pkl_path, "--dest",
-                                    str(tmp_path / "x.pt")])
+                                    str(tmp_path / "x.bin")])
     assert r.exit_code != 0
 
 

@@ -57,9 +57,8 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # the serving slice's 25 modules, the training slice's 18, and the
-    # fused layer's kernel module and bench package (4)
-    assert len(_modules()) >= 47
+    # 49 modules before the e4e slice, which adds 9
+    assert len(_modules()) >= 58
     for m in ("stylemc_torch.ops.kernels.modconv",
               "stylemc_torch.bench.fused_layer_ab",
               "stylemc_torch.bench.timing",
@@ -68,7 +67,12 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
               "stylemc_torch.models.arcface", "stylemc_torch.models.clip.model",
               "stylemc_torch.models.clip.tokenizer",
               "stylemc_torch.losses.clip_loss_nada",
-              "stylemc_torch.utils.model_zoo", "stylemc_torch.io.torch_state"):
+              "stylemc_torch.utils.model_zoo", "stylemc_torch.io.torch_state",
+              "stylemc_torch.io.rosinality", "stylemc_torch.io.export",
+              "stylemc_torch.models.e4e.encoders",
+              "stylemc_torch.models.e4e.psp",
+              "stylemc_torch.models.e4e.editings",
+              "stylemc_torch.data.images", "stylemc_torch.cli.infer_e4e"):
         assert m in _modules()
 
 
@@ -90,7 +94,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from stylemc_torch.models.stylegan2.generator import (
         GeneratorConfig, init_generator_params)
     from stylemc_torch.cli.find_direction import main as find_direction_main
+    from stylemc_torch.cli.infer_e4e import main as infer_e4e_main
     from stylemc_torch.models.clip import CLIP_CONFIGS, init_clip_params
+    from stylemc_torch.models.e4e.encoders import init_encoder_params
+    from stylemc_torch.models.e4e.psp import load_psp_from_checkpoint
     from stylemc_torch.serve import BatchEditor
     from stylemc_torch.utils.model_zoo import load_arcface, load_clip_models
 
@@ -108,9 +115,17 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: load_arcface(allow_random_init=True),
                  lambda: load_clip_models("small", allow_random_init=True),
                  lambda: init_clip_params(torch.Generator(),
-                                          CLIP_CONFIGS["ViT-B/32"])):
+                                          CLIP_CONFIGS["ViT-B/32"]),
+                 lambda: BatchEditor.from_files(net, e4e_ckpt="e4e.pt"),
+                 lambda: load_psp_from_checkpoint("e4e.pt"),
+                 lambda: init_encoder_params(torch.Generator())):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+    # so does the e4e inversion CLI
+    r = CliRunner().invoke(infer_e4e_main, [
+        "--images_dir", str(tmp_path), "--ckpt", "e4e.pt"])
+    assert isinstance(r.exception, RuntimeError), r.output
+    assert "device='cpu'" in str(r.exception)
     # the training CLI defaults to cuda and raises before loading anything
     s_file = str(tmp_path / "s.npz")
     np.savez(s_file, s=np.zeros((4, 26, 512), np.float32))
