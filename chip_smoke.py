@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive stylemc_torch's serving, training and real-image editing paths
-and its fused-layer A/B on one CUDA card and check them.
+"""Drive stylemc_torch's serving, training (single prompt, prompt sweeps,
+the landmarks loss) and real-image editing paths and its fused-layer A/B
+on one CUDA card and check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -71,6 +72,40 @@ script exits non-zero:
           Δs gradients within relative L2 1e-3; beside it, not gated, the
           card's Δs gradient with B1's and B2's plain versions in place of
           the kernels
+  sweep   DirectionEngine on the train phase's models and 129 seeds:
+          the precompute once, optimize_batch over 4 prompts (the prompt
+          axis folded into the image batch: 16 images, one synthesis call
+          a step), then the serial optimize of each prompt, all from the
+          seeded direction d0; ms/step and directions an hour both ways,
+          precompute seconds, peak memory; each prompt's batched update
+          (direction − d0) against its serial one, after one step on a
+          4-seed engine at a held learning rate (cosine > 0.99999, norms
+          within 1e-3) and after the run (cosine > 0.9999, norms within
+          3e-3), beside the serial run repeated (not gated)
+  landmarks  find_direction with landmarks_in_graph on the same models
+          and seeds, the landmark weights (seeded MTCNN P/R/O nets, their
+          face logit biased so the cascade finds faces, and a seeded
+          full-width MobileNet-GDConv, its last layer scaled around 0.5)
+          written in the reference's formats ({p,r,o}net.npy, a
+          'state_dict' .pth.tar) and read by default_landmarker:
+          prepare_landmarks_refs seconds, MTCNN candidates per stage and
+          faces found, ms/step, one profiled step's idle share, the
+          landmarks term (finite, non-zero), NMS and crop extraction
+          through the native host library (built with g++, asserted)
+  landmarks_parity  one full-width landmarks step (batch 2, seeds 1-2) on
+          the card and on the CPU from the seeded direction, both
+          landmarks terms reading the card's renders and the boxes MTCNN
+          found on the card: loss rtol 1e-4; Δs gradient relative L2
+          3e-2; the landmarks term's fp32 image gradient on each side
+          against float64 at the card's render, pushed into Δs, 3e-2; the
+          card's boxes against the CPU's on their own renders (the same
+          faces, within 0.05 px); each gate beside a TF32 control of the
+          card's side, which must fail it
+  landmarks_metric  the logging-only metric on 4 seeds, card against
+          CPU on the card's detections (rtol 1.5e-4; TF32 must fail it)
+  sweep_clis  find_direction --text_prompts (3 prompts) --batch_prompts,
+          again with --resume <that run's directory>, and --landmarks_grad
+          with the landmark files, as subprocesses on 8 seeds
   serve   full-width FFHQ-256 generator (random weights from a seed) saved
           as a native .npz, BatchEditor.from_files + warmup, an HTTP server
           answering /edit and /stats; images/s at batch 16 and 64; where
@@ -100,7 +135,9 @@ script exits non-zero:
           profiled apart.
           e4e_parity: 2 photos on the card and on the CPU: W+ codes
           (PSP.encode) within relative L2 1e-4, edited renders (power 2)
-          within ±1 per uint8
+          within ±1 per uint8.
+          e4e_align: align_faces on the 8 photos (256² FFHQ crops from the
+          landmark files), then infer_e4e --align, as subprocesses
 
 Each path that renders or trains (the HTTP requests, the throughput calls,
 the parity render on the card, the precompute, the training steps, the
@@ -119,6 +156,7 @@ repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -1330,14 +1368,16 @@ print(json.dumps({k: c.launches for k, c in counters.items()}))
 """
 
 
-def run_cli(paths, cfg, path, name, synthesis_calls, backward_calls, *args):
-    """Run `stylemc_torch.cli.<name>` in a subprocess and hold the launch
-    counts it reports to `record_launches` under `path`; (seconds,
-    stdout)."""
+def run_cli(paths, cfg, path, name, synthesis_calls, backward_calls, *args,
+            env=None):
+    """Run `stylemc_torch.cli.<name>` in a subprocess (with `env` added to
+    its environment) and hold the launch counts it reports to
+    `record_launches` under `path`; (seconds, stdout)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", CLI_RUNNER,
                            f"stylemc_torch.cli.{name}", *args], cwd=ROOT,
-                          timeout=600, capture_output=True, text=True)
+                          timeout=600, capture_output=True, text=True,
+                          env={**os.environ, **(env or {})})
     if proc.returncode != 0:
         raise RuntimeError(f"{name} exited {proc.returncode}:\n"
                            f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
@@ -1745,9 +1785,14 @@ def phase_e4e_parity(torch, editor, ckpt, decoder, photos, direction,
     record_launches(paths, editor.cfg, "e4e_parity", launches, 1)
 
 
-def phase_e4e(torch, tmp, smi, paths):
+def phase_e4e(torch, tmp, smi, paths, landmark_files):
+    import numpy as np
+
     ckpt, decoder, photos, direction, outdir = make_e4e(torch, tmp)
     cli_styles = phase_e4e_clis(ckpt, decoder, photos, outdir, tmp, paths)
+    phase_e4e_align(ckpt, photos, np.load(os.path.join(
+        tmp, "e4e_inversion", "projected_w.npz"))["w"], tmp, landmark_files,
+        paths)
     editor = phase_e4e_serve(torch, ckpt, decoder, photos, direction,
                              cli_styles, smi, paths)
     phase_e4e_parity(torch, editor, ckpt, decoder, photos, direction, paths)
@@ -1970,8 +2015,8 @@ def phase_train_parity(torch, net, editor, direction_file, models, paths):
     from stylemc_torch.models.clip import FallbackTokenizer
     from stylemc_torch.models.stylegan2.generator import synthesis
     from stylemc_torch.train.find_direction import (
-        TRAINABLE, FindDirectionConfig, _clip_term_from_img, _id_features,
-        assemble_direction, make_clip_bundles, make_loss_fn,
+        TRAINABLE, FindDirectionConfig, _clip_image_features, _clip_term,
+        _id_features, assemble_direction, make_clip_bundles, make_loss_fn,
         precompute_original_features)
 
     cfg, gp, clip_cpu, arc_cpu, clip, arc = models
@@ -2001,8 +2046,9 @@ def phase_train_parity(torch, net, editor, direction_file, models, paths):
         terms = {"identity": fdc.identity_loss_coef * torch.mean(
             1.0 - torch.sum(_id_features(arcface, x, fdc) * id_f, dim=1))}
         for b, cf, name in zip(bundles, clip_f, ("clip_b32", "clip_b16")):
-            terms[name] = fdc.clip_loss_coef * b.weight * _clip_term_from_img(
-                b, fdc.clip_loss_type, x, cf)
+            terms[name] = fdc.clip_loss_coef * b.weight * _clip_term(
+                b, fdc.clip_loss_type,
+                _clip_image_features(b, x, fdc.clip_loss_type), cf)
         g_img = {k: torch.autograd.grad(v, x)[0].cpu()
                  for k, v in terms.items()}
         return (float(loss.detach()),
@@ -2061,6 +2107,720 @@ def phase_train_parity(torch, net, editor, direction_file, models, paths):
     if not (loss_rel <= PARITY_LOSS_RTOL and grad_rel <= PARITY_GRAD_REL_L2):
         raise AssertionError(f"card vs CPU step: loss rel {loss_rel}, "
                              f"gradient rel L2 {grad_rel}")
+
+
+# ------------------------------------------- prompt sweeps and landmarks
+
+SWEEP_PROMPTS = ["a smiling face", "an old face", "a face with glasses",
+                 "a surprised face"]
+# optimize_batch against the serial optimize, per prompt, on the update
+# each made to the seeded direction; readings on an H100 80GB HBM3 at
+# 700 W. One step: JAX's one-step test's gate (read: cosine >= 0.9999995,
+# norms within 2.4e-4). The 33-step run: JAX's
+# run-test cosine; its norms within 3e-3, not 1e-3, because rounding
+# grows over the steps: the card's own repeat of a serial run moves the
+# update's norm by up to 8.2e-4, the batched run by up to 1.6e-3
+# (PERF.md §6)
+SWEEP_STEP_COS = 0.99999
+SWEEP_STEP_NORM_RTOL = 1e-3
+SWEEP_COS = 0.9999
+SWEEP_NORM_RTOL = 3e-3
+SWEEP_CLI_SEEDS = 8
+# seeded landmark weights, written in the reference's formats: the MTCNN
+# nets' face logit biased by FACE_BIAS so the cascade passes candidates and
+# finds faces (random nets as drawn pass almost none); MobileNet's last
+# layer scaled by MOBILENET_HEAD_SCALE around 0.5, so its crop-normalised
+# landmarks lie in the crop as real ones do
+LANDMARK_WEIGHT_SEEDS = {"pnet": 11, "rnet": 12, "onet": 13, "mobilenet": 14}
+MTCNN_CLASSIFIER = {"pnet": "conv4_1", "rnet": "conv5_1", "onet": "conv6_1"}
+FACE_BIAS = 2.0
+MOBILENET_HEAD_SCALE = 0.01
+LANDMARK_SEEDS = 129
+# Card-against-CPU gates of the landmarks phases, fixed (PERF.md §6),
+# each between the fp32 readings and its TF32 control's, which must fail
+# it (tf32_control); readings on an H100 80GB HBM3 at 700 W. The seeded
+# MobileNet's input gradient is ill-conditioned: against float64 its fp32
+# result is 0.5-0.9 % off in relative L2, on the CPU and on the card
+# alike, so the gradient gates allow about twice the two sides' errors
+# summed (the step read 1.04e-2); TF32 reads 0.40 (term) and 0.84 (step).
+LANDMARKS_LOSS_RTOL = 1e-4
+LANDMARKS_GRAD_REL_L2 = 3e-2
+LANDMARKS_TERM_REL_L2 = 3e-2
+# MTCNN boxes on the parity renders, in pixels (fp32 3.7e-3, TF32 196)
+LANDMARKS_BOX_ATOL = 0.05
+# the metric (fp32 3.72e-5, TF32 5.65e-4)
+LANDMARKS_METRIC_RTOL = 1.5e-4
+
+
+def make_landmark_weights(torch, tmp):
+    """Seeded full-width MTCNN P/R/O nets ({p,r,o}net.npy) and
+    MobileNet-GDConv (a 'state_dict' .pth.tar), written in the reference's
+    formats by the port's own code; (MTCNN dir, MobileNet path)."""
+    from stylemc_torch.models import mobilenet
+    from stylemc_torch.models.mtcnn import nets
+
+    def gen(key):
+        return torch.Generator().manual_seed(LANDMARK_WEIGHT_SEEDS[key])
+
+    mtcnn_dir = os.path.join(tmp, "mtcnn")
+    os.makedirs(mtcnn_dir)
+    for which, cls in MTCNN_CLASSIFIER.items():
+        p = nets.init_net_params(gen(which), which, device="cpu")
+        p[f"{cls}.bias"][1] += FACE_BIAS
+        nets.save_net_weights(os.path.join(mtcnn_dir, f"{which}.npy"), p)
+    mb = mobilenet.init_mobilenet_gdconv_params(gen("mobilenet"),
+                                                device="cpu")
+    mb["linear1"]["conv"] *= MOBILENET_HEAD_SCALE
+    mb["linear1"]["bn"]["bias"].fill_(0.5)
+    path = os.path.join(tmp, "mobilenet_224_model_best_gdconv_external"
+                             ".pth.tar")
+    torch.save({"state_dict": mobilenet.params_to_torch_state(mb)}, path)
+    return mtcnn_dir, path
+
+
+def _cosine(a, b):
+    import numpy as np
+
+    a, b = np.ravel(a), np.ravel(b)
+    return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def _update_agreement(batched, serial, d0):
+    """Each prompt's batched update (direction − d0) against its serial
+    one: cosine, norm ratio, and the norms beside |d0|."""
+    import numpy as np
+
+    out = []
+    for b, d in zip(batched, serial):
+        ub, us = b - d0, d - d0
+        out.append({"cosine_of_update": _cosine(ub, us),
+                    "update_norm_ratio": float(np.linalg.norm(ub)
+                                               / np.linalg.norm(us)),
+                    "update_norm": float(np.linalg.norm(us)),
+                    "d0_norm": float(np.linalg.norm(d0)),
+                    "cosine": _cosine(b, d)})
+    return out
+
+
+def _agree(rows, cos, rtol):
+    return all(r["cosine_of_update"] > cos
+               and abs(r["update_norm_ratio"] - 1) <= rtol for r in rows)
+
+
+def phase_sweep(torch, models, styles, direction_file, smi, paths):
+    """DirectionEngine at full width over SWEEP_PROMPTS: the precompute
+    once, optimize_batch (the four prompts folded into one batch of 16
+    images a step), then the serial optimize of each prompt; all from the
+    seeded direction d0. Each prompt's batched update (direction − d0)
+    against its serial one, after one step on a 4-seed engine (cosine >
+    SWEEP_STEP_COS, norms within SWEEP_STEP_NORM_RTOL) and after the run
+    (SWEEP_COS, SWEEP_NORM_RTOL); d0 (|d0| ≈ 32) would swamp whole
+    directions."""
+    import numpy as np
+
+    from stylemc_torch.models.clip import FallbackTokenizer
+    from stylemc_torch.train.find_direction import (DirectionEngine,
+                                                    FindDirectionConfig)
+
+    cfg, gp, _, _, clip, arc = models
+    d0 = np.load(direction_file)["s"].astype(np.float32)
+    fdc = FindDirectionConfig(n_epochs=1)
+    n_prompts = len(SWEEP_PROMPTS)
+    resume = [d0] * n_prompts
+
+    def engine_on(rows, fdc=fdc):
+        engine = DirectionEngine(gp, cfg, rows, clip, arc, fdc,
+                                 tokenizer=FallbackTokenizer())
+        torch.cuda.synchronize()
+        return engine
+
+    def numpy(d):
+        return d.cpu().numpy()
+
+    # one step: a 4-seed engine at batch 4, the learning rate held (the
+    # cosine schedule of a one-step run ends at 0)
+    one = engine_on(styles[:fdc.batch_size],
+                    dataclasses.replace(fdc, lr_schedule="constant"))
+    one_step = _update_agreement(
+        numpy(one.optimize_batch(SWEEP_PROMPTS, resume_directions=resume)[0]),
+        [numpy(one.optimize(p, resume_direction=d0)[0])
+         for p in SWEEP_PROMPTS], d0)
+    del one
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, pre = count_launches(lambda: engine_on(styles))
+    precompute_s = time.perf_counter() - t0
+    chunks = -(-styles.shape[0] // 8)
+    record_launches(paths, cfg, "sweep_precompute", pre, chunks)
+    (batched, info_b), launches_b = count_launches(
+        lambda: engine.optimize_batch(SWEEP_PROMPTS,
+                                      resume_directions=resume))
+    peak = torch.cuda.max_memory_allocated()
+    steps = info_b["iterations"]
+    record_launches(paths, cfg, "sweep_batch", launches_b, steps, steps)
+    serial, launches_s = count_launches(
+        lambda: [engine.optimize(p, resume_direction=d0)
+                 for p in SWEEP_PROMPTS])
+    record_launches(paths, cfg, "sweep_serial", launches_s,
+                    n_prompts * steps, n_prompts * steps)
+    # the serial run again (not gated): how far the card's own run-to-run
+    # rounding moves a run's update
+    repeat = [numpy(engine.optimize(p, resume_direction=d0)[0])
+              for p in SWEEP_PROMPTS]
+
+    batched = numpy(batched)
+    serial_d = [numpy(d) for d, _ in serial]
+    per_prompt = _update_agreement(batched, serial_d, d0)
+    for p, (row, (d, info)) in enumerate(zip(per_prompt, serial)):
+        row.update(prompt=SWEEP_PROMPTS[p],
+                   moved=float(np.abs(serial_d[p] - d0).max()),
+                   serial_steady_ms_per_step=info["steady_ms_per_step"])
+    serial_s = sum(info["time"] for _, info in serial)
+    serial_ms = statistics.mean(info["steady_ms_per_step"]
+                                for _, info in serial)
+    hist = np.asarray(info_b["history"])
+    checks = {
+        "steps": steps == -(-styles.shape[0] // fdc.batch_size),
+        "history_shape": hist.shape == (n_prompts, steps),
+        "history_finite": bool(np.isfinite(hist).all()),
+        "moved": all(r["moved"] > 0 for r in per_prompt),
+        "one_step": _agree(one_step, SWEEP_STEP_COS, SWEEP_STEP_NORM_RTOL),
+        "run": _agree(per_prompt, SWEEP_COS, SWEEP_NORM_RTOL),
+        "prompts_differ": _cosine(batched[0] - d0, batched[1] - d0) < 0.99}
+    emit({"phase": "sweep", "card": smi, "prompts": n_prompts,
+          "seeds": styles.shape[0], "batch": fdc.batch_size,
+          "images_per_batched_step": n_prompts * fdc.batch_size,
+          "precompute_s": precompute_s, "peak_mem_bytes": peak,
+          "batched_steady_ms_per_step": info_b["steady_ms_per_step"],
+          "batched_first_step_s": info_b["first_step_time"],
+          "batched_time_s": info_b["time"],
+          "serial_steady_ms_per_step": serial_ms,
+          "serial_time_s": serial_s,
+          "directions_per_hour_batched": n_prompts * 3600 / info_b["time"],
+          "directions_per_hour_serial": n_prompts * 3600 / serial_s,
+          "batched_over_serial_time": info_b["time"] / serial_s,
+          "one_step": one_step, "per_prompt": per_prompt,
+          "serial_repeat": _update_agreement(repeat, serial_d, d0),
+          "gates": {"one_step": [SWEEP_STEP_COS, SWEEP_STEP_NORM_RTOL],
+                    "run": [SWEEP_COS, SWEEP_NORM_RTOL]},
+          "launches": {"precompute": pre, "batched": launches_b,
+                       "serial": launches_s},
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"sweep checks failed: {checks}")
+
+
+@contextlib.contextmanager
+def mtcnn_counters(mtcnn):
+    """Count what each MTCNN stage passes while the block runs: stage-1
+    boxes (after each scale's NMS), R-Net's and O-Net's inputs, the faces
+    found, the frames and the seconds in detect_faces."""
+    from stylemc_torch.models.mtcnn import detect
+
+    counts = {"frames": 0, "stage1_boxes": 0, "rnet_inputs": 0,
+              "onet_inputs": 0, "faces": 0, "frames_with_face": 0,
+              "detect_s": 0.0}
+    saved = detect.run_first_stage, detect.detect_faces, mtcnn.rnet, \
+        mtcnn.onet
+    first_stage, detect_faces, rnet, onet = saved
+
+    def run_first_stage(*a, **kw):
+        boxes = first_stage(*a, **kw)
+        counts["stage1_boxes"] += 0 if boxes is None else len(boxes)
+        return boxes
+
+    def counted_detect(image, net, *a, **kw):
+        t0 = time.perf_counter()
+        faces, lms = detect_faces(image, net, *a, **kw)
+        counts["detect_s"] += time.perf_counter() - t0
+        counts["frames"] += 1
+        counts["faces"] += len(faces)
+        counts["frames_with_face"] += int(len(faces) > 0)
+        return faces, lms
+
+    def stage(fn, key):
+        def run(x):
+            counts[key] += len(x)
+            return fn(x)
+        return run
+
+    detect.run_first_stage, detect.detect_faces = run_first_stage, \
+        counted_detect
+    mtcnn.rnet, mtcnn.onet = stage(rnet, "rnet_inputs"), \
+        stage(onet, "onet_inputs")
+    try:
+        yield counts
+    finally:
+        detect.run_first_stage, detect.detect_faces, mtcnn.rnet, \
+            mtcnn.onet = saved
+
+
+def phase_landmarks(torch, models, styles, files, smi, paths):
+    """find_direction with landmarks_in_graph at full width (the train
+    phase's models and workload) and the landmark weights loaded through
+    default_landmarker: prepare_landmarks_refs' seconds and MTCNN counts
+    over the renders, steady ms/step, one profiled step's idle share, the
+    landmarks term (finite, non-zero), and the native host library's
+    calls (NMS and crop extraction must have gone through it)."""
+    import numpy as np
+
+    from stylemc_torch import native
+    from stylemc_torch.cv.landmarks import default_landmarker
+    from stylemc_torch.models.clip import FallbackTokenizer
+    from stylemc_torch.train import find_direction as fd
+
+    cfg, gp, _, _, clip, arc = models
+    landmarker = default_landmarker(*files, device="cuda")
+    fdc = fd.FindDirectionConfig(n_epochs=1, landmarks_in_graph=True)
+    styles = styles[:LANDMARK_SEEDS]
+    refs = {}
+    prepare = fd.prepare_landmarks_refs
+
+    def timed_prepare(*a, **kw):
+        t0 = time.perf_counter()
+        out = prepare(*a, **kw)
+        torch.cuda.synchronize()
+        refs.update(seconds=time.perf_counter() - t0, boxes=out[0],
+                    landmarks=out[1])
+        return out
+
+    terms = []
+
+    def callback(it, loss, aux, lr, grad_norm, direction):
+        terms.append(aux["landmarks_loss"])
+
+    for k in native.calls:
+        native.calls[k] = 0
+    fd.prepare_landmarks_refs = timed_prepare
+    try:
+        with mtcnn_counters(landmarker.mtcnn) as counts:
+            (direction, info), launches = count_launches(
+                lambda: fd.find_direction(
+                    gp, cfg, styles, clip, arc, fdc,
+                    tokenizer=FallbackTokenizer(), landmarker=landmarker,
+                    callback=callback))
+    finally:
+        fd.prepare_landmarks_refs = prepare
+    native_calls = dict(native.calls)
+    steps = info["iterations"]
+    chunks = -(-styles.shape[0] // 8)
+    # the precompute and prepare_landmarks_refs each render every item once
+    record_launches(paths, cfg, "landmarks", launches, 2 * chunks + steps,
+                    steps)
+    full = np.asarray([0, 0, fdc.resolution, fdc.resolution], np.float32)
+    boxes = refs["boxes"].cpu().numpy()
+    hist = np.asarray(info["history"])
+
+    # one step, profiled, on the first four items
+    bundles = fd.make_clip_bundles(fdc, clip, FallbackTokenizer())
+    loss_fn = fd.make_loss_fn(gp, cfg, bundles, arc, fdc,
+                              mobilenet_params=landmarker.params)
+    idx = torch.arange(4, device="cuda")
+    bank = (styles, *fd.precompute_original_features(
+        gp, cfg, styles[:8], bundles, arc, fdc),
+        (refs["boxes"], refs["landmarks"]))
+    delta0 = direction[:, fd.TRAINABLE].clone()
+
+    def one_step():
+        return fd._sgd_step(loss_fn, bank, delta0, idx, fdc.learning_rate)
+
+    breakdown = device_breakdown(torch, one_step, top=10)
+    checks = {
+        "steps": steps == -(-styles.shape[0] // fdc.batch_size),
+        "history_finite": bool(np.isfinite(hist).all()),
+        "landmarks_term_finite": bool(np.isfinite(terms).all()),
+        "landmarks_term_nonzero": bool(all(t != 0 for t in terms)),
+        "native_built": native.native_available(),
+        "native_nms_used": native_calls["nms"] > 0,
+        "native_crops_used": native_calls["extract_image_boxes"] > 0,
+        "frames_detected": counts["frames"] == styles.shape[0]}
+    emit({"phase": "landmarks", "card": smi, "seeds": styles.shape[0],
+          "batch": fdc.batch_size,
+          "landmarks_loss_coef": fdc.landmarks_loss_coef,
+          "prepare_landmarks_refs_s": refs["seconds"],
+          "prepare_s_per_frame": refs["seconds"] / styles.shape[0],
+          "mtcnn": counts,
+          "full_frame_boxes": int((np.abs(boxes - full).max(1) == 0).sum()),
+          "first_step_s": info["first_step_time"],
+          "steady_ms_per_step": info["steady_ms_per_step"],
+          "time_s": info["time"], "loss_first_last": [hist[0], hist[-1]],
+          "landmarks_term_by_callback": terms,
+          "native_library": str(native.build_host_ops()),
+          "native_calls": native_calls,
+          "profiled_step": breakdown, "launches": launches,
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"landmarks checks failed: {checks}")
+    return landmarker
+
+
+def _rel(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+@contextlib.contextmanager
+def tf32_control(torch):
+    """The lower-precision control: TF32 (a 10-bit mantissa) in cuDNN's
+    convolutions and cuBLAS's matmuls while the block runs. Each landmarks
+    gate must tell it from the card's fp32."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def landmarks_render(fd, seen, render=None):
+    """While the block runs, the landmarks term of make_loss_fn's loss
+    appends the image it is given to `seen`; given `render`, it reads
+    render's values instead, its gradient still flowing to the step's own
+    image."""
+    crop = fd.crop_landmarks
+
+    def crop_landmarks(mb, img, boxes):
+        seen.append(img.detach().cpu())
+        if render is not None:
+            img = img + (render.to(img.device) - img).detach()
+        return crop(mb, img, boxes)
+
+    fd.crop_landmarks = crop_landmarks
+    try:
+        yield
+    finally:
+        fd.crop_landmarks = crop
+
+
+def phase_landmarks_parity(torch, net, models, styles, direction_file,
+                           landmarker, files, paths):
+    """One full-width landmarks step (batch 2, seeds 1-2) from the seeded
+    direction on the card and on the CPU. Both landmarks terms read the
+    card's renders (the originals for the reference landmarks, the edit
+    through landmarks_render) and crop the boxes MTCNN found on the card;
+    the CLIP and ArcFace terms read each side's own render, as in
+    train_parity. Gates, all fixed (PERF.md §6): losses within
+    LANDMARKS_LOSS_RTOL; the Δs gradients within LANDMARKS_GRAD_REL_L2;
+    the landmarks term's fp32 image gradient on the card and on the CPU
+    against float64 at the card's render, each pushed back into Δs, within
+    LANDMARKS_TERM_REL_L2; the card's MTCNN boxes against the CPU's on
+    their own renders (same faces, within LANDMARKS_BOX_ATOL px). Each gate
+    beside its TF32 control, which must fail it."""
+    import numpy as np
+
+    from stylemc_torch.cv.landmarks import default_landmarker
+    from stylemc_torch.edit import to_uint8_hwc
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.losses.landmarks_loss import landmarks_loss
+    from stylemc_torch.models.clip import FallbackTokenizer
+    from stylemc_torch.models.stylegan2.generator import synthesis
+    from stylemc_torch.train import find_direction as fd
+
+    cfg, gp, clip_cpu, arc_cpu, clip, arc = models
+    _, gp_cpu = load_generator(net, device="cpu")
+    cpu_landmarker = default_landmarker(*files, device="cpu")
+    resume = np.load(direction_file)["s"].astype(np.float32)
+    s = styles[1:3]
+    fdc = fd.FindDirectionConfig(batch_size=2, n_epochs=1,
+                                 landmarks_in_graph=True)
+    until_k = fd.until_k_for_resolution(fdc.resolution)
+    tok = FallbackTokenizer()
+
+    with torch.no_grad():
+        img_card = synthesis(gp, cfg, s, until_k=until_k)
+        img_cpu = synthesis(gp_cpu, cfg, s.cpu(), until_k=until_k)
+    full = np.asarray([0, 0, fdc.resolution, fdc.resolution], np.float32)
+
+    def card_boxes():
+        return fd.detect_crop_boxes(to_uint8_hwc(img_card), landmarker.mtcnn,
+                                    fdc.resolution)
+
+    def box_diff(a, b):
+        """(faces found per frame, max |Δ| px; inf where the faces found
+        differ from b's)."""
+        fa = [bool(np.abs(x - full).max() > 0) for x in a]
+        fb = [bool(np.abs(x - full).max() > 0) for x in b]
+        return fa, (float(np.abs(a - b).max()) if fa == fb else
+                    float("inf"))
+
+    boxes = card_boxes()
+    boxes_cpu = fd.detect_crop_boxes(to_uint8_hwc(img_cpu),
+                                     cpu_landmarker.mtcnn, fdc.resolution)
+    with tf32_control(torch):
+        boxes_tf32 = card_boxes()
+    found, boxes_diff = box_diff(boxes, boxes_cpu)
+    found_cpu, _ = box_diff(boxes_cpu, boxes_cpu)
+    _, boxes_diff_tf32 = box_diff(boxes_tf32, boxes_cpu)
+    originals = img_card.cpu()
+
+    def step(gparams, clip_models, arcface, mb, device, seen, render=None):
+        bundles = fd.make_clip_bundles(fdc, clip_models, tok)
+        st = s.to(device)
+        id_f, clip_f = fd.precompute_original_features(
+            gparams, cfg, st, bundles, arcface, fdc, chunk=2)
+        b = torch.from_numpy(boxes).to(device)
+        with torch.no_grad():
+            lm0 = fd.crop_landmarks(mb, originals.to(device), b)
+        dl = torch.from_numpy(resume[:, fd.TRAINABLE]).to(device)
+        dl.requires_grad_(True)
+        loss_fn = fd.make_loss_fn(gparams, cfg, bundles, arcface, fdc,
+                                  mobilenet_params=mb)
+        with landmarks_render(fd, seen, render):
+            loss, aux = loss_fn(dl, st, id_f, clip_f, (b, lm0))
+        g, = torch.autograd.grad(loss, dl)
+        return (float(loss.detach()),
+                {k: float(v.detach()) for k, v in aux.items()}, g.cpu(),
+                lm0.cpu())
+
+    seen = []
+    (loss, aux, g, lm0), launches = count_launches(
+        lambda: step(gp, clip, arc, landmarker.params, "cuda", seen))
+    # the precompute and the loss: two synthesis calls, one differentiated
+    record_launches(paths, cfg, "landmarks_parity", launches, 2, 1)
+    edit_card = seen[0]
+    with tf32_control(torch):
+        g_tf32 = step(gp, clip, arc, landmarker.params, "cuda", [])[2]
+    t0 = time.perf_counter()
+    (loss_c, aux_c, g_c, lm0_c), cpu_launches = count_launches(
+        lambda: step(gp_cpu, clip_cpu, arc_cpu, cpu_landmarker.params,
+                     "cpu", [], edit_card))
+    cpu_s = time.perf_counter() - t0
+
+    # float64: the landmarks term's image gradient (crop, MobileNet, loss)
+    # at the card's edited render, in float64 on the CPU, and in fp32 on
+    # the CPU, on the card and on the card under TF32; each difference from
+    # float64 pushed back through the CPU's generator into Δs and measured
+    # against the CPU's Δs gradient with its landmarks term in float64
+    def f64(tree):
+        return {k: f64(v) if isinstance(v, dict) else v.double()
+                for k, v in tree.items()}
+
+    b = torch.from_numpy(boxes)
+    side = (b[:, 2] - b[:, 0]).reshape(-1, 1, 1)
+
+    def term_grad(mb, device="cpu", dtype=torch.float32):
+        x = edit_card.to(device, dtype).requires_grad_(True)
+        sd = side.to(device, dtype)
+        term = fdc.landmarks_loss_coef * landmarks_loss(
+            fd.crop_landmarks(mb, x, b.to(device, dtype)) * sd,
+            lm0_c.to(device, dtype) * sd)
+        return torch.autograd.grad(term, x)[0].cpu().double()
+
+    dl = torch.from_numpy(resume[:, fd.TRAINABLE]).requires_grad_(True)
+    img = synthesis(gp_cpu, cfg, s.cpu() + fd.assemble_direction(dl),
+                    until_k=until_k)
+
+    def back(v):
+        return torch.autograd.grad(img, dl, v.float(), retain_graph=True)[0]
+
+    g64 = term_grad(f64(cpu_landmarker.params), dtype=torch.float64)
+    g32 = term_grad(cpu_landmarker.params)
+    g_card = term_grad(landmarker.params, "cuda")
+    with tf32_control(torch):
+        g_card_tf32 = term_grad(landmarker.params, "cuda")
+    g_ref = g_c + back(g64 - g32)
+    term = {name: float(back(v - g64).norm() / g_ref.norm()) for name, v in (
+        ("cpu_fp32", g32), ("card_fp32", g_card),
+        ("card_tf32_control", g_card_tf32))}
+    loss_rel = abs(loss - loss_c) / abs(loss_c)
+    grad_rel = _rel(g, g_c)
+    grad_rel_tf32 = _rel(g_tf32, g_c)
+    checks = {
+        "cpu_no_launch": not any(cpu_launches.values()),
+        "faces": found == found_cpu, "boxes": boxes_diff <= LANDMARKS_BOX_ATOL,
+        "loss": loss_rel <= LANDMARKS_LOSS_RTOL,
+        "grad": grad_rel <= LANDMARKS_GRAD_REL_L2,
+        "term_card": term["card_fp32"] <= LANDMARKS_TERM_REL_L2,
+        "term_cpu": term["cpu_fp32"] <= LANDMARKS_TERM_REL_L2,
+        "boxes_tf32_caught": boxes_diff_tf32 > LANDMARKS_BOX_ATOL,
+        "grad_tf32_caught": grad_rel_tf32 > LANDMARKS_GRAD_REL_L2,
+        "term_tf32_caught": term["card_tf32_control"] > LANDMARKS_TERM_REL_L2}
+    emit({"phase": "landmarks_parity", "loss": loss, "cpu_loss": loss_c,
+          "loss_rel": loss_rel, "aux": aux, "cpu_aux": aux_c,
+          "grad_rel_l2": grad_rel, "grad_gate": LANDMARKS_GRAD_REL_L2,
+          "grad_rel_l2_tf32_control": grad_rel_tf32,
+          "grad_norm": float(g_c.norm()),
+          "grad_rel_l2_to_fp64_reference": {"card": _rel(g, g_ref),
+                                            "cpu": _rel(g_c, g_ref)},
+          "landmarks_term_rel_l2_to_fp64": term,
+          "landmarks_term_gate": LANDMARKS_TERM_REL_L2,
+          "landmarks_term_image_grad_rel_l2_to_fp64": {
+              "cpu_fp32": _rel(g32, g64), "card_fp32": _rel(g_card, g64)},
+          "reference_landmarks_max_abs_diff": float((lm0 - lm0_c).abs()
+                                                    .max()),
+          "boxes": boxes.tolist(), "cpu_boxes": boxes_cpu.tolist(),
+          "faces_found": found, "cpu_faces_found": found_cpu,
+          "box_max_abs_diff": boxes_diff,
+          "box_max_abs_diff_tf32_control": boxes_diff_tf32,
+          "box_gate_px": LANDMARKS_BOX_ATOL, "cpu_s": cpu_s,
+          "launches": launches, "cpu_launches": cpu_launches,
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"landmarks_parity checks failed: {checks}")
+
+
+def phase_landmarks_metric(torch, net, models, styles, direction_file,
+                           landmarker, files, paths):
+    """The logging-only metric (make_landmarks_metric_fn) on 4 seeds with
+    the seeded direction, on the card and on the CPU, within
+    LANDMARKS_METRIC_RTOL; the CPU run and the card's TF32 control (which
+    must fail the gate) replay the card's MTCNN detections, so all three
+    crop the same faces."""
+    import numpy as np
+
+    from stylemc_torch.cv.landmarks import default_landmarker
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.models.mtcnn import detect
+    from stylemc_torch.train.find_direction import (FindDirectionConfig,
+                                                    make_landmarks_metric_fn)
+
+    cfg, gp = models[:2]
+    _, gp_cpu = load_generator(net, device="cpu")
+    fdc = FindDirectionConfig()
+    direction = torch.from_numpy(np.load(direction_file)["s"]
+                                 .astype(np.float32))
+    s = styles[:4]
+    detect_faces = detect.detect_faces
+    found = []
+
+    def record(*a, **kw):
+        found.append(detect_faces(*a, **kw))
+        return found[-1]
+
+    detect.detect_faces = record
+    try:
+        t0 = time.perf_counter()
+        value, launches = count_launches(lambda: make_landmarks_metric_fn(
+            gp, cfg, fdc, landmarker)(direction.cuda(), s))
+        card_s = time.perf_counter() - t0
+        replay = iter(found)
+        detect.detect_faces = lambda *a, **kw: next(replay)
+        t0 = time.perf_counter()
+        cpu_value = make_landmarks_metric_fn(
+            gp_cpu, cfg, fdc, default_landmarker(*files, device="cpu"))(
+            direction, s.cpu())
+        cpu_s = time.perf_counter() - t0
+        replay = iter(found)
+        with tf32_control(torch):
+            tf32_value = make_landmarks_metric_fn(gp, cfg, fdc, landmarker)(
+                direction.cuda(), s)
+    finally:
+        detect.detect_faces = detect_faces
+    # the originals and the edits: two synthesis calls
+    record_launches(paths, cfg, "landmarks_metric", launches, 2)
+
+    def rel(v):
+        return abs(v - cpu_value) / max(abs(cpu_value), 1e-30)
+
+    checks = {"positive": value > 0,
+              "metric": rel(value) <= LANDMARKS_METRIC_RTOL,
+              "tf32_caught": rel(tf32_value) > LANDMARKS_METRIC_RTOL}
+    emit({"phase": "landmarks_metric", "metric": value,
+          "cpu_metric": cpu_value, "rel": rel(value),
+          "tf32_control_metric": tf32_value,
+          "tf32_control_rel": rel(tf32_value),
+          "gate": LANDMARKS_METRIC_RTOL,
+          "frames_with_face": sum(len(f[0]) > 0 for f in found),
+          "frames": len(found), "card_s": card_s, "cpu_s": cpu_s,
+          "launches": launches, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"landmarks_metric checks failed: {checks}")
+
+
+def phase_sweep_clis(cfg, net, styles, tmp, files, paths):
+    """find_direction's sweep and landmarks CLIs as subprocesses on
+    SWEEP_CLI_SEEDS seeds (batch 4, one epoch: one precompute chunk and
+    two steps): --text_prompts --batch_prompts, again with --resume <the
+    first run's directory>, and --landmarks_grad with the landmark files
+    (STYLEMC_MTCNN_DIR, STYLEMC_MOBILENET)."""
+    import numpy as np
+
+    s_file = os.path.join(tmp, "sweep_input.npz")
+    np.savez(s_file, s=styles[1:1 + SWEEP_CLI_SEEDS].cpu().numpy())
+    prompts = SWEEP_PROMPTS[:3]
+    tags = [p.replace(" ", "_") for p in prompts]
+    first, second, lm_out = (os.path.join(tmp, d) for d in
+                             ("sweep1", "sweep2", "landmarks_grad"))
+    common = ["--network", net, "--s_input", s_file, "--allow_random_init",
+              "--n_epochs", "1", "--batch_size", "4"]
+    env = {"STYLEMC_MTCNN_DIR": files[0], "STYLEMC_MOBILENET": files[1]}
+
+    def run(path, synthesis_calls, *args, **kw):
+        return run_cli(paths, cfg, f"cli_{path}", "find_direction",
+                       synthesis_calls, 2, *common, *args, **kw)
+
+    sweep = ["--text_prompts", "|".join(prompts), "--batch_prompts"]
+    secs, outs = zip(*[
+        run("sweep", 3, "--outdir", first, *sweep),
+        run("sweep_resume", 3, "--outdir", second, *sweep, "--resume",
+            first),
+        # the precompute, the renders for the MTCNN boxes, two steps
+        run("landmarks_grad", 4, "--outdir", lm_out, "--text_prompt",
+            prompts[0], "--landmarks_grad", env=env)])
+    d1 = [np.load(os.path.join(first, f"direction_{t}.npz"))["s"]
+          for t in tags]
+    d2 = [np.load(os.path.join(second, f"direction_{t}.npz"))["s"]
+          for t in tags]
+    d_lm = np.load(os.path.join(lm_out, f"direction_{tags[0]}.npz"))["s"]
+    lm_line = [x for x in outs[2].splitlines() if "landmarks loss:" in x]
+    checks = {
+        "files": all(d.shape == (1, 26, 512) for d in d1 + d2 + [d_lm]),
+        "finite": bool(all(np.isfinite(d).all() for d in d1 + d2 + [d_lm])),
+        "resumed": all(f"Resuming {p!r} from {first}" in outs[1]
+                       for p in prompts),
+        "resume_moved": all(np.abs(a - b).max() > 0
+                            for a, b in zip(d1, d2)),
+        "landmarks_logged": bool(lm_line) and float(
+            lm_line[-1].split("landmarks loss:")[1].split(",")[0]) > 0}
+    emit({"phase": "sweep_clis", "seconds": list(secs),
+          "launches": {k: paths[f"cli_{k}"]["launches"] for k in
+                       ("sweep", "sweep_resume", "landmarks_grad")},
+          "sweep_tail": outs[0].strip().splitlines()[-2:],
+          "landmarks_grad_tail": outs[2].strip().splitlines()[-4:],
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"sweep CLI checks failed: {checks}")
+
+
+def phase_e4e_align(ckpt, photos, inv_codes, tmp, files, paths):
+    """align_faces on the e4e photos (FFHQ alignment at 256 from the
+    landmark files), then infer_e4e --align on the same photos, as
+    subprocesses; neither renders."""
+    import numpy as np
+
+    from stylemc_torch.io.rosinality import config_for_rosinality
+
+    cfg = config_for_rosinality(E4E_SIZE)
+    aligned = os.path.join(tmp, "e4e_aligned")
+    inv = os.path.join(tmp, "e4e_inversion_aligned")
+    env = {"STYLEMC_MTCNN_DIR": files[0], "STYLEMC_MOBILENET": files[1]}
+    secs, outs = zip(*[
+        run_cli(paths, cfg, "e4e_cli_align_faces", "align_faces", 0, 0,
+                "--images_dir", photos, "--out_dir", aligned,
+                "--output_size", "256", env=env),
+        run_cli(paths, cfg, "e4e_cli_infer_e4e_align", "infer_e4e", 0, 0,
+                "--images_dir", photos, "--ckpt", ckpt, "--save_dir", inv,
+                "--stylegan_size", str(E4E_SIZE), "--batch", "4", "--align",
+                env=env)])
+    w = np.load(os.path.join(inv, "projected_w.npz"))["w"]
+    imgs = [_decode(open(os.path.join(aligned, f), "rb").read())
+            for f in sorted(os.listdir(aligned))]
+    checks = {
+        "aligned_all": f"aligned {E4E_PHOTOS}/{E4E_PHOTOS}" in outs[0],
+        "aligned_shapes": len(imgs) == E4E_PHOTOS and all(
+            a.shape == (256, 256, 3) for a in imgs),
+        "w_shape": w.shape == (E4E_PHOTOS, cfg.num_ws, 512),
+        "w_finite": bool(np.isfinite(w).all()),
+        "alignment_changes_codes": bool(np.abs(w - inv_codes).max() > 0)}
+    emit({"phase": "e4e_align", "seconds": list(secs),
+          "max_abs_code_change": float(np.abs(w - inv_codes).max()),
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"e4e align checks failed: {checks}")
 
 
 MODCONV_REPLACES = {
@@ -2174,13 +2934,26 @@ def main() -> int:
         # training first: its timed run comes before any profiler trace
         editor, models = phase_train(torch, net, smi, paths)
         phase_train_parity(torch, net, editor, direction, models, paths)
-        del editor, models
+        # prompt sweeps and the landmarks stack, on the train phase's
+        # models and seeds
+        styles = editor.styles_from_seeds(list(range(TRAIN_SEEDS)))
+        phase_sweep(torch, models, styles, direction, smi, paths)
+        landmark_files = make_landmark_weights(torch, tmp)
+        landmarker = phase_landmarks(torch, models, styles, landmark_files,
+                                     smi, paths)
+        phase_landmarks_parity(torch, net, models, styles, direction,
+                               landmarker, landmark_files, paths)
+        phase_landmarks_metric(torch, net, models, styles, direction,
+                               landmarker, landmark_files, paths)
+        phase_sweep_clis(models[0], net, styles, tmp, landmark_files, paths)
+        del editor, models, landmarker, styles
+        torch.cuda.empty_cache()
         editor = phase_serve(torch, net, direction, smi, paths)
         phase_parity(editor, net, direction, paths)
         phase_clis(editor, net, direction, tmp, paths)
         del editor
         torch.cuda.empty_cache()
-        phase_e4e(torch, tmp, smi, paths)
+        phase_e4e(torch, tmp, smi, paths, landmark_files)
 
     timed = {"upsample2x": CHAIN_SHAPES, "downsample2x": TRAIN_DOWN_SHAPES}
     sources = {"upsample2x": ("upfirdn2d_pallas.py:132", "_upsample2x_core"),

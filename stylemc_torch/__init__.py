@@ -5,7 +5,8 @@ A port of `stylemc_tpu` that mirrors its module names and public layouts
 (NCHW images, OIHW weights, packed [N, 26, 512] S-space styles, the params
 tree of `models/stylegan2/generator.py`) so both packages read and write the
 same files. It imports torch, numpy and the standard library (the CLIs
-also click and Pillow, as the JAX package's do), never JAX.
+also click and Pillow, the face crop OpenCV and the FFHQ alignment SciPy,
+as the JAX package's do), never JAX.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 CUDA device and no explicit CPU request they raise (see `device.py`).

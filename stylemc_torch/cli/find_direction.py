@@ -1,5 +1,5 @@
-"""Optimize a global S-space direction for a text prompt (counterpart of
-`stylemc_tpu/cli/find_direction.py`, single-prompt path).
+"""Optimize a global S-space direction for a text prompt, or for a sweep of
+prompts (counterpart of `stylemc_tpu/cli/find_direction.py`).
 
 Same flags, defaults, console lines and output files as the JAX CLI:
 {outdir}/direction_{prompt}.npz with key 's' (spaces in the prompt turned
@@ -9,13 +9,20 @@ wandb_log.jsonl. Runs on --device (cuda unless told otherwise).
 Model weights: the generator comes from --network; CLIP weights resolve via
 STYLEMC_CLIP_DIR (OpenAI .pt files), ArcFace via --arcface_weights or
 STYLEMC_ARCFACE (model_ir_se50.pth). --allow_random_init substitutes random
-weights from fixed seeds for missing perception models.
+weights from fixed seeds for missing perception models. The landmarks term
+reads the MTCNN and MobileNet-GDConv weights from STYLEMC_MTCNN_DIR and
+STYLEMC_MOBILENET; without them the logging-only metric reads 0, and
+--landmarks_grad stops.
 
   python -m stylemc_torch.cli.find_direction --network ffhq.pkl \
       --s_input out/input.npz --outdir out --text_prompt "a smiling face"
+  python -m stylemc_torch.cli.find_direction --network ffhq.pkl \
+      --s_input out/input.npz --outdir out --text_prompts "an old face|a \
+      young face" --batch_prompts
 
-Not ported yet: --text_prompts (the prompt-sweep engine, ROADMAP A10) and
---landmarks_grad (ROADMAP A11) are refused; --data_parallel runs on one
+--text_prompts writes one direction_<prompt>.npz per prompt (and
+direction_last_<prompt>.npz every 1000 iterations with --batch_prompts);
+--resume may then name a directory of them. --data_parallel runs on one
 card (multi-GPU training is ROADMAP A17).
 """
 
@@ -31,6 +38,33 @@ import click
 import numpy as np
 
 
+def _resolve_zoo_resume(resume, prompts):
+    """Per-prompt resume directions for --batch_prompts.
+
+    `resume` may be one .npz (every prompt resumes from it) or a directory:
+    each prompt looks up direction_{tag}.npz, then direction_last_{tag}.npz
+    (tag: the prompt with spaces as underscores); a prompt with no file
+    starts fresh. None when nothing resolves."""
+    if not resume:
+        return None
+    if os.path.isdir(resume):
+        out = []
+        for p in prompts:
+            tag = p.replace(" ", "_")
+            d = None
+            for name in (f"direction_{tag}.npz", f"direction_last_{tag}.npz"):
+                path = os.path.join(resume, name)
+                if os.path.exists(path):
+                    d = np.load(path)["s"].astype(np.float32)
+                    print(f"Resuming {p!r} from {path}")
+                    break
+            out.append(d)
+        return out if any(d is not None for d in out) else None
+    d = np.load(resume)["s"].astype(np.float32)
+    print(f"Resuming all {len(prompts)} prompts from {resume}")
+    return [d] * len(prompts)
+
+
 @click.command()
 @click.option("--network", "network_pkl", required=True)
 @click.option("--noise-mode", type=click.Choice(["const", "random", "none"]),
@@ -40,14 +74,20 @@ import numpy as np
 @click.option("--text_prompt", type=str, required=True,
               default="a photo of a face of a feminine woman with no makeup")
 @click.option("--text_prompts", type=str, default=None,
-              help="'|'-separated prompt sweep (not ported yet: ROADMAP A10)")
+              help="'|'-separated prompt sweep over one precompute "
+                   "(DirectionEngine); one direction_<prompt>.npz per "
+                   "prompt. Overrides --text_prompt.")
 @click.option("--batch_prompts/--no-batch_prompts", default=False,
               show_default=True,
-              help="With --text_prompts (not ported yet: ROADMAP A10)")
+              help="With --text_prompts: train all prompts at once, the "
+                   "prompt axis folded into the image batch (P x "
+                   "batch_size images a step)")
 @click.option("--negative_text_prompt", type=str, required=False,
               default="a photo of a face of a masculine man")
 @click.option("--negative_text_prompts", type=str, default=None,
-              help="With --text_prompts (not ported yet: ROADMAP A10)")
+              help="With --text_prompts: '|'-separated per-prompt negative "
+                   "anchors (as many as the prompts). Default: "
+                   "--negative_text_prompt for every prompt.")
 @click.option("--clip_type", type=str, default="double", show_default=True)
 @click.option("--clip_loss_type", type=str, default="default", show_default=True)
 @click.option("--resolution", type=int, default=256, show_default=True)
@@ -58,8 +98,10 @@ import numpy as np
 @click.option("--identity_loss_coef", type=float, default=0.6, show_default=True)
 @click.option("--landmarks_loss_coef", type=float, default=25.0, show_default=True)
 @click.option("--landmarks_grad", is_flag=True, default=False,
-              help="Backpropagate the landmarks loss (not ported yet: "
-                   "ROADMAP A11)")
+              help="Backpropagate the landmarks loss (MTCNN boxes found "
+                   "once, a differentiable crop and MobileNet in the step); "
+                   "by default the term is logging-only, as in the "
+                   "reference. Needs the MTCNN and MobileNet weights.")
 @click.option("--l2_reg_coef", type=float, default=0.1, show_default=True)
 @click.option("--clip_loss_coef", type=float, default=1.0, show_default=True)
 @click.option("--arcface_weights", type=str, default=None)
@@ -92,20 +134,24 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
          landmarks_loss_coef, landmarks_grad, l2_reg_coef, clip_loss_coef,
          arcface_weights, allow_random_init, data_parallel, split_step, bf16,
          perception_bf16, remat, steps_per_dispatch, trace_dir, device):
-    if text_prompts or negative_text_prompts or batch_prompts:
+    if negative_text_prompts and not text_prompts:
         raise click.BadParameter(
-            "--text_prompts / --negative_text_prompts / --batch_prompts: the "
-            "prompt-sweep engine is not ported yet (ROADMAP A10); run one "
-            "--text_prompt per call")
-    if landmarks_grad:
+            "--negative_text_prompts requires --text_prompts")
+    if negative_text_prompts and len(negative_text_prompts.split("|")) != \
+            len(text_prompts.split("|")):
         raise click.BadParameter(
-            "--landmarks_grad: the differentiable landmarks loss is not "
-            "ported yet (ROADMAP A11)")
-    if resume and os.path.isdir(resume):
+            "--negative_text_prompts count must match --text_prompts")
+    if text_prompts and landmarks_grad:
         raise click.BadParameter(
-            "--resume as a directory requires --text_prompts "
-            "--batch_prompts (not ported yet: ROADMAP A10); pass a single "
-            ".npz")
+            "--landmarks_grad is not supported with --text_prompts (the "
+            "prompt-sweep DirectionEngine has no in-graph landmarks loss); "
+            "run find_direction per prompt instead")
+    if resume and os.path.isdir(resume) and not (text_prompts and
+                                                 batch_prompts):
+        raise click.BadParameter(
+            "--resume as a directory (per-prompt direction_<tag>.npz "
+            "lookup) requires --text_prompts --batch_prompts; pass a "
+            "single .npz otherwise")
     if steps_per_dispatch != "epoch":
         try:
             steps_per_dispatch = int(steps_per_dispatch)
@@ -139,6 +185,7 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
         learning_rate=learning_rate, n_epochs=n_epochs,
         identity_loss_coef=identity_loss_coef,
         landmarks_loss_coef=landmarks_loss_coef,
+        landmarks_in_graph=landmarks_grad,
         l2_reg_coef=l2_reg_coef, clip_loss_coef=clip_loss_coef,
         clip_type=clip_type, clip_loss_type=clip_loss_type,
         noise_mode=noise_mode, split_step=split_step,
@@ -159,7 +206,7 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
               "dispatch")
 
     resume_direction = None
-    if resume:
+    if resume and not os.path.isdir(resume):
         resume_direction = np.load(resume)["s"].astype(np.float32)
         print(f"Loaded direction from {resume}")
 
@@ -177,11 +224,28 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
         if it % 1000 == 990:
             np.savez(f"{outdir}/direction_last.npz", s=np.asarray(direction))
 
-    if landmarks_loss_coef != 0:
-        # the landmarks stack is not ported (ROADMAP A11); its metric is
-        # logging-only and carries no gradient, so Δs is the same
-        print("landmark model weights unavailable — landmarks metric "
-              "reported as 0 (it carries no gradient either way)")
+    # landmarks: the logging-only metric (no gradient, as in the
+    # reference) or, with --landmarks_grad, the in-graph loss
+    landmarks_metric_fn = None
+    landmarker = None
+    if text_prompts and landmarks_loss_coef != 0:
+        print("note: the landmarks metric is not computed on the "
+              "--text_prompts sweep path (it is logging-only and carries "
+              "no gradient; see --landmarks_grad)")
+    elif landmarks_loss_coef != 0:
+        from ..cv.landmarks import default_landmarker
+        from ..train.find_direction import make_landmarks_metric_fn
+
+        try:
+            landmarker = default_landmarker(device=dev)
+            if not landmarks_grad:
+                landmarks_metric_fn = make_landmarks_metric_fn(
+                    params, cfg, fdc, landmarker)
+        except FileNotFoundError:
+            if landmarks_grad:
+                raise
+            print("landmark model weights unavailable — landmarks metric "
+                  "reported as 0 (it carries no gradient either way)")
 
     tracing = contextlib.nullcontext()
     if trace_dir:
@@ -192,14 +256,24 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
             activities.append(ProfilerActivity.CUDA)
         tracing = profile(activities=activities)
     with tracing:
-        direction, info = find_direction(
-            params, cfg, styles_array, clip_models, arcface_params, fdc,
-            tokenizer=tokenizer, resume_direction=resume_direction,
-            callback=callback)
+        if text_prompts:
+            _sweep(params, cfg, styles_array, clip_models, arcface_params,
+                   fdc, tokenizer, text_prompts, negative_text_prompts,
+                   batch_prompts, resume, resume_direction, outdir, logger)
+        else:
+            direction, info = find_direction(
+                params, cfg, styles_array, clip_models, arcface_params, fdc,
+                tokenizer=tokenizer, resume_direction=resume_direction,
+                callback=callback, landmarks_metric_fn=landmarks_metric_fn,
+                landmarker=landmarker if landmarks_grad else None)
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
         tracing.export_chrome_trace(
             os.path.join(trace_dir, "find_direction_trace.json"))
+    if text_prompts:
+        print("time passed:", time.time() - t1)
+        logger.finish()
+        return
 
     np.savez(f"{outdir}/direction_{prompt_tag}.npz",
              s=direction.cpu().numpy().astype(np.float32))
@@ -210,6 +284,54 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
               "and library set-up)")
     print("time passed:", time.time() - t1)
     logger.finish()
+
+
+def _sweep(params, cfg, styles_array, clip_models, arcface_params, fdc,
+           tokenizer, text_prompts, negative_text_prompts, batch_prompts,
+           resume, resume_direction, outdir, logger):
+    """--text_prompts: every prompt over one DirectionEngine, at once
+    (--batch_prompts) or one after another; a direction_<tag>.npz each."""
+    from ..train.find_direction import DirectionEngine
+
+    engine = DirectionEngine(params, cfg, styles_array, clip_models,
+                             arcface_params, fdc, tokenizer=tokenizer)
+    prompts = [p.strip() for p in text_prompts.split("|")]
+    negatives = [p.strip() for p in negative_text_prompts.split("|")] \
+        if negative_text_prompts else None
+    tags = [p.replace(" ", "_") for p in prompts]
+
+    def save(name, direction):
+        np.savez(os.path.join(outdir, name),
+                 s=np.asarray(direction, np.float32))
+
+    if batch_prompts:
+        def zoo_callback(it, losses, auxs, lr, dirs):
+            logger.log({"loss_mean": float(np.mean(losses)), "lr": lr},
+                       step=it)
+            if it % 1000 == 990:
+                for tag, d in zip(tags, dirs):
+                    save(f"direction_last_{tag}.npz", d)
+
+        directions, info = engine.optimize_batch(
+            prompts, negative_text_prompts=negatives,
+            resume_directions=_resolve_zoo_resume(resume, prompts),
+            callback=zoo_callback)
+        for tag, d in zip(tags, directions.cpu().numpy()):
+            save(f"direction_{tag}.npz", d)
+        steady = info.get("steady_ms_per_step")
+        print(f"{len(prompts)} prompts in one batched run: "
+              f"{info['time']:.1f} s"
+              + (f" ({steady:.0f} ms/step steady)" if steady else ""))
+        return
+    for i, (prompt, tag) in enumerate(zip(prompts, tags)):
+        tp = time.time()
+        direction, info = engine.optimize(
+            prompt, negative_text_prompt=negatives[i] if negatives else None,
+            resume_direction=resume_direction)
+        save(f"direction_{tag}.npz", direction.cpu().numpy())
+        steady = info.get("steady_ms_per_step")
+        print(f"{prompt!r}: {time.time() - tp:.1f} s"
+              + (f" ({steady:.0f} ms/step steady)" if steady else ""))
 
 
 if __name__ == "__main__":

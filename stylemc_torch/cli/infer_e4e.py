@@ -3,7 +3,9 @@
 its last image) and save the codes to <save_dir>/projected_w.npz (key 'w')
 for w_s_converter. --save_images also writes each reconstruction, decoded
 by the checkpoint's own generator and pooled to 256², to
-<save_dir>/inversions/<image name>.
+<save_dir>/inversions/<image name>. --align first FFHQ-aligns each photo
+to 256² from its landmarks (MTCNN + MobileNet-GDConv from STYLEMC_MTCNN_DIR
+and STYLEMC_MOBILENET, on --device); a photo without a face stops the run.
 
   python -m stylemc_torch.cli.infer_e4e --images_dir photos \\
       --ckpt e4e_ffhq_encode.pt --save_dir out/e4e
@@ -28,7 +30,8 @@ import torch
               help="e4e checkpoint (e4e_ffhq_encode.pt)")
 @click.option("--save_dir", type=str, default="encoder4editing")
 @click.option("--align/--no-align", default=False,
-              help="FFHQ-align faces before encoding (not ported yet)")
+              help="FFHQ-align faces before encoding (needs the MTCNN and "
+                   "MobileNet weights)")
 @click.option("--stylegan_size", type=int, default=1024)
 @click.option("--batch", type=int, default=4)
 @click.option("--save_images", is_flag=True, default=False,
@@ -44,11 +47,6 @@ def main(images_dir, checkpoint_path, save_dir, align, stylegan_size, batch,
     from ..models.e4e.psp import load_psp_from_checkpoint
     from ..models.stylegan2.generator import inference_cfg
 
-    if align:
-        raise click.BadParameter(
-            "face alignment needs the MTCNN and MobileNet landmark stack, "
-            "which is not ported yet (ROADMAP A11); align the photos "
-            "beforehand", param_hint="--align")
     dev = resolve_device(device)
     disable_tf32(dev)
     psp = load_psp_from_checkpoint(checkpoint_path, stylegan_size, device=dev)
@@ -60,13 +58,27 @@ def main(images_dir, checkpoint_path, save_dir, align, stylegan_size, batch,
     if save_images:
         os.makedirs(os.path.join(save_dir, "inversions"), exist_ok=True)
 
+    landmarker = None
+    if align:
+        from ..cv.align import align_face_file
+        from ..cv.landmarks import default_landmarker
+
+        landmarker = default_landmarker(device=dev)
+
+    def load(path):
+        if landmarker is None:
+            return load_image(path, 256)
+        aligned = align_face_file(path, landmarker, output_size=256)
+        return np.asarray(aligned, np.float32).transpose(2, 0, 1) \
+            / 127.5 - 1.0
+
     latents = []
     t0 = time.time()
     for lo in range(0, len(paths), batch):
         chunk_paths = paths[lo:lo + batch]
         n = len(chunk_paths)
-        x = torch.from_numpy(np.stack([load_image(p, 256)
-                                       for p in chunk_paths])).to(dev)
+        x = torch.from_numpy(np.stack([load(p) for p in chunk_paths])
+                             ).to(dev)
         if n < batch:  # one batch shape for every call
             x = torch.cat([x, x[-1:].expand(batch - n, *x.shape[1:])])
         with torch.inference_mode():

@@ -1,9 +1,13 @@
-"""Carry generator parameters between the numpy params tree and torch.
+"""Carry parameter trees between the JAX package's numpy layout and torch.
 
-The tree is the nested-dict layout of `stylemc_tpu`'s generator
+A tree is the nested dict of `stylemc_tpu`'s params: the generator's
 (`mapping.fc{i}.{weight,bias}`, `mapping.w_avg`,
-`synthesis.b{res}.{const,conv0,conv1,torgb}...`); the port keeps that layout
-with torch tensors as leaves, so a parameter has the same path in both.
+`synthesis.b{res}.{const,conv0,conv1,torgb}...`), ArcFace's, CLIP's, the
+e4e encoders', MobileNet-GDConv's (`stem`, `blocks.{i}`, `head`,
+`linear7`, `linear1`) and each MTCNN net's flat dict keyed by the torch
+parameter names (`features.conv1.weight`, ...). The port keeps every
+layout with torch tensors as leaves, so a parameter has the same path in
+both, and these two functions carry any of them.
 """
 
 from __future__ import annotations

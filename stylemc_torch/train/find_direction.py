@@ -16,17 +16,31 @@ chain's upsample runs B1 forward and B2 backward
 
 The batch order is the JAX package's: one `np.random.RandomState(seed)`
 draw per step. The learning rate is computed on the host in float64 and
-applied as float32, as the JAX step does. The landmarks term is a
-logging-only metric that carries no gradient; it is not ported (ROADMAP
-A11) and reads 0.
+applied as float32, as the JAX step does.
+
+The landmarks term, as in the JAX package: by default a logging-only
+metric (`make_landmarks_metric_fn`: render, MTCNN, MobileNet on the host
+pipeline) that carries no gradient, as in the reference; with
+`landmarks_in_graph` a differentiable term, from MTCNN boxes found once on
+the originals (`prepare_landmarks_refs`), a differentiable crop and the
+MobileNet landmarker in the step.
+
+`DirectionEngine` sweeps prompts over one precompute. Its `optimize_batch`
+trains P prompts at once by folding the prompt axis into the image batch:
+each prompt's Δs edits its own copy of the batch's styles, one synthesis
+call renders all P·B images, CLIP and ArcFace take them together, and the
+loss is the sum of the P per-prompt losses, so each prompt's Δs gets its
+own gradient (the prompts share no parameter).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +48,7 @@ import torch
 from ..losses.clip_loss import make_text_direction
 from ..losses.clip_loss_nada import NADATextAnchors, preprocess_nada
 from ..losses.id_loss import extract_feats
+from ..losses.landmarks_loss import landmarks_loss
 from ..models.clip import encode_image, tokenize, unprocess
 from ..models.stylegan2.generator import (
     N_STYLE_CHANNELS, S_TRAINABLE_SPACE_CHANNELS, STYLE_DIM, GeneratorConfig,
@@ -53,7 +68,8 @@ class FindDirectionConfig:
     n_epochs: int = 4
     identity_loss_coef: float = 0.6
     landmarks_loss_coef: float = 25.0
-    # the differentiable landmarks loss is not ported (ROADMAP A11)
+    # backpropagate the landmarks loss (see the module docstring); False
+    # keeps the reference's logging-only term
     landmarks_in_graph: bool = False
     l2_reg_coef: float = 0.1
     clip_loss_coef: float = 1.0
@@ -104,20 +120,21 @@ class CLIPBundle:
     weight: float = 1.0
 
 
+def _clip_names_weights(fdc: FindDirectionConfig):
+    if fdc.clip_type == "double":
+        return [("ViT-B/32", 1.0), ("ViT-B/16", 0.5)]
+    if fdc.clip_type == "large":
+        return [("ViT-B/16", 1.0)]
+    return [("ViT-B/32", 1.0)]
+
+
 def make_clip_bundles(fdc: FindDirectionConfig, clip_models: Dict[str, Tuple],
                       tokenizer=None) -> List[CLIPBundle]:
     """clip_models: {'ViT-B/32': (cfg, params), ...} → the 1-2 weighted
     bundles with their text anchors."""
-    if fdc.clip_type == "double":
-        names_weights = [("ViT-B/32", 1.0), ("ViT-B/16", 0.5)]
-    elif fdc.clip_type == "large":
-        names_weights = [("ViT-B/16", 1.0)]
-    else:
-        names_weights = [("ViT-B/32", 1.0)]
-
     bundles = []
     with torch.no_grad():
-        for name, weight in names_weights:
+        for name, weight in _clip_names_weights(fdc):
             cfg, params = clip_models[name]
             b = CLIPBundle(cfg=cfg, params=params, weight=weight)
             if fdc.clip_loss_type in ("nada", "nada_global"):
@@ -179,53 +196,89 @@ def precompute_original_features(gen_params, gen_cfg: GeneratorConfig,
     return torch.cat(id_out), tuple(torch.cat(c) for c in clip_out)
 
 
-def _clip_term_from_img(bundle: CLIPBundle, clip_loss_type: str, img, orig_f,
-                        dtype: torch.dtype = torch.float32):
-    """One bundle's CLIP term given the rendered image and the cached
-    original-image features (un-normalized encode_image outputs)."""
-    f_tgt = _clip_image_features(bundle, img, clip_loss_type, dtype)
+def _anchors(bundle: CLIPBundle) -> Dict[str, torch.Tensor]:
+    """The bundle's own prompt anchors, keyed as `DirectionEngine` passes
+    them."""
+    if bundle.nada_anchors is not None:
+        return {"target_direction": bundle.nada_anchors.target_direction,
+                "target_text_features":
+                    bundle.nada_anchors.target_text_features}
+    return {"text_direction": bundle.text_direction}
+
+
+def _clip_term(bundle: CLIPBundle, clip_loss_type: str, f_tgt, orig_f,
+               text: Optional[Dict[str, torch.Tensor]] = None):
+    """One bundle's CLIP term from the edited images' features f_tgt
+    [..., B, E] and the cached original features orig_f [B, E]
+    (un-normalised encode_image outputs); the mean over B, one value per
+    leading index. `text` holds the prompt anchors ([..., 1, E]); None
+    means the bundle's own."""
+    text = text if text is not None else _anchors(bundle)
 
     def normalize(x):
         return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
 
     if clip_loss_type == "nada_global":
-        t_n = bundle.nada_anchors.target_text_features
+        t_n = text["target_text_features"]
         logit_scale = torch.exp(bundle.params["logit_scale"])
-        return torch.mean(1.0 - logit_scale * (normalize(f_tgt) @ t_n.T)
-                          / 100.0)
+        return torch.mean(1.0 - logit_scale * (
+            normalize(f_tgt) @ t_n.transpose(-1, -2)) / 100.0, dim=(-2, -1))
     if clip_loss_type == "nada":
         edit = normalize(f_tgt) - normalize(orig_f)
         edit = edit / torch.clamp(
             torch.linalg.vector_norm(edit, dim=-1, keepdim=True), min=1e-6)
-        cos = torch.sum(edit * bundle.nada_anchors.target_direction, dim=-1)
-        return torch.mean(1.0 - cos)
+        cos = torch.sum(edit * text["target_direction"], dim=-1)
+        return torch.mean(1.0 - cos, dim=-1)
     # StyleMC: normalize(E(tgt) − E(src)) against the text direction; the
     # norm is clamped so a zero edit gives loss 1, not 0/0
     edit = f_tgt - orig_f
     edit = edit / torch.clamp(
         torch.linalg.vector_norm(edit, dim=-1, keepdim=True), min=1e-6)
-    cos = torch.sum(edit * bundle.text_direction.to(edit.dtype), dim=-1)
-    return torch.mean(1.0 - cos)
+    cos = torch.sum(edit * text["text_direction"].to(edit.dtype), dim=-1)
+    return torch.mean(1.0 - cos, dim=-1)
 
 
 def assemble_direction(delta_s: torch.Tensor) -> torch.Tensor:
-    """[1, 8, 512] trainable rows → full [1, 26, 512] direction
+    """[..., 8, 512] trainable rows → full [..., 26, 512] direction
     (differentiable in delta_s)."""
     rows = torch.tensor(TRAINABLE, device=delta_s.device)
-    direction = delta_s.new_zeros((1, N_STYLE_CHANNELS, STYLE_DIM))
-    return direction.index_copy(1, rows, delta_s)
+    direction = delta_s.new_zeros(delta_s.shape[:-2]
+                                  + (N_STYLE_CHANNELS, STYLE_DIM))
+    return direction.index_copy(delta_s.dim() - 2, rows, delta_s)
+
+
+def crop_landmarks(mobilenet_params, img: torch.Tensor, boxes: torch.Tensor
+                   ) -> torch.Tensor:
+    """The landmarks of each image's box, crop-normalised [B, 68, 2]: the
+    differentiable crop of img ([-1, 1]) to 224², as uint8/255 would read
+    it, through the MobileNet landmarker."""
+    from ..cv.landmarks import normalize_crop
+    from ..models.mobilenet import mobilenet_gdconv_apply
+    from ..ops.image import crop_resize_bilinear
+
+    crop = crop_resize_bilinear(img, boxes)
+    x = normalize_crop(crop * 0.5 + 128.0 / 255.0)
+    return mobilenet_gdconv_apply(mobilenet_params, x).reshape(
+        x.shape[0], -1, 2)
 
 
 def make_loss_fn(gen_params, gen_cfg: GeneratorConfig,
                  bundles: List[CLIPBundle], arcface_params,
                  fdc: FindDirectionConfig,
-                 edit_fn: Optional[Callable] = None):
-    """loss(trainable, styles, id_feats_orig, clip_feats_orig) →
-    (loss, aux). edit_fn(trainable, styles) → styles2; by default the
-    global-direction edit (Δs rows added to the trainable rows)."""
-    if fdc.landmarks_in_graph:
-        raise NotImplementedError(
-            "landmarks_in_graph is not ported yet (ROADMAP A11)")
+                 edit_fn: Optional[Callable] = None,
+                 mobilenet_params=None):
+    """loss(trainable, styles, id_feats_orig, clip_feats_orig,
+    landmarks_refs=None, text_dirs=None) → (loss, aux).
+
+    edit_fn(trainable, styles) → styles2; by default the global-direction
+    edit (Δs rows added to the trainable rows). A trainable of [P, 1, 8,
+    512] edits P copies of the batch: styles2 [P, B, 26, 512] render in one
+    synthesis call, and loss and aux hold one value per prompt. text_dirs
+    (one anchor dict per bundle, `DirectionEngine._text_dirs`) replaces the
+    bundles' own anchors. With fdc.landmarks_in_graph, landmarks_refs is
+    the batch rows' (boxes [B, 4], crop-normalised landmarks [B, 68, 2])
+    from `prepare_landmarks_refs`, and mobilenet_params the landmarker's
+    weights."""
     until_k = until_k_for_resolution(fdc.resolution)
     dtype = _perception_dtype(fdc)
     rows = torch.tensor(TRAINABLE)
@@ -234,32 +287,125 @@ def make_loss_fn(gen_params, gen_cfg: GeneratorConfig,
         def edit_fn(delta_s, styles):
             return styles + assemble_direction(delta_s)
 
-    def loss_fn(trainable, styles, id_feats_orig, clip_feats_orig):
+    def loss_fn(trainable, styles, id_feats_orig, clip_feats_orig,
+                landmarks_refs=None, text_dirs=None):
         styles2 = edit_fn(trainable, styles)
-        img = synthesis(gen_params, gen_cfg, styles2, until_k=until_k,
-                        noise_mode=fdc.noise_mode)
+        lead = styles2.shape[:-2]
+        img = synthesis(gen_params, gen_cfg,
+                        styles2.reshape(-1, *styles2.shape[-2:]),
+                        until_k=until_k, noise_mode=fdc.noise_mode)
 
-        id_f = _id_features(arcface_params, img, fdc)
+        id_f = _id_features(arcface_params, img, fdc).reshape(*lead, -1)
         identity_loss = torch.mean(1.0 - torch.sum(id_f * id_feats_orig,
-                                                   dim=1))
+                                                   dim=-1), dim=-1)
         identity_loss = identity_loss * fdc.identity_loss_coef
 
         clip_loss = 0.0
-        for b, orig_f in zip(bundles, clip_feats_orig):
-            clip_loss = clip_loss + b.weight * _clip_term_from_img(
-                b, fdc.clip_loss_type, img, orig_f, dtype)
+        for i, (b, orig_f) in enumerate(zip(bundles, clip_feats_orig)):
+            f_tgt = _clip_image_features(b, img, fdc.clip_loss_type,
+                                         dtype).reshape(*lead, -1)
+            clip_loss = clip_loss + b.weight * _clip_term(
+                b, fdc.clip_loss_type, f_tgt, orig_f,
+                text_dirs[i] if text_dirs else None)
         clip_loss = clip_loss * fdc.clip_loss_coef
 
         r = rows.to(styles.device)
         l2 = fdc.l2_reg_coef * torch.mean(torch.square(
-            styles2.index_select(1, r) - styles.index_select(1, r)))
+            styles2.index_select(-2, r) - styles.index_select(-2, r)),
+            dim=(-3, -2, -1))
 
         loss = identity_loss + clip_loss + l2
         aux = {"clip_loss": clip_loss, "identity_loss": identity_loss,
                "l2_loss": l2}
+        if fdc.landmarks_in_graph:
+            boxes, lm_orig = landmarks_refs
+            lm_edit = crop_landmarks(mobilenet_params, img, boxes)
+            side = (boxes[:, 2] - boxes[:, 0]).reshape(-1, 1, 1)
+            lm_term = fdc.landmarks_loss_coef * landmarks_loss(
+                lm_edit * side, lm_orig * side)
+            loss = loss + lm_term
+            aux["landmarks_loss"] = lm_term
         return loss, aux
 
     return loss_fn
+
+
+def detect_crop_boxes(frames_u8: np.ndarray, mtcnn, resolution: int
+                      ) -> np.ndarray:
+    """The crop box of each frame's best MTCNN face (`square_crop_box`),
+    or the full frame where none is found: [N, 4] float32."""
+    from ..models.mtcnn.detect import detect_faces
+    from ..ops.image import square_crop_box
+
+    boxes = []
+    for frame in frames_u8:
+        try:
+            faces, _ = detect_faces(frame, mtcnn)
+        except Exception:  # noqa: BLE001 the reference reuses the originals
+            faces = []
+        if len(faces):
+            boxes.append(square_crop_box(faces[np.argmax(faces[:, 4])]))
+        else:
+            boxes.append(np.asarray([0, 0, resolution, resolution],
+                                    np.float32))
+    return np.stack(boxes)
+
+
+def prepare_landmarks_refs(gen_params, gen_cfg: GeneratorConfig,
+                           styles_array: torch.Tensor,
+                           fdc: FindDirectionConfig, landmarker,
+                           chunk: int = 8):
+    """Once per run, for the in-graph landmarks loss: render every
+    original, detect its best face with MTCNN on the host (undetected: the
+    full frame), and record its landmarks through the step's own crop and
+    landmarker. → (boxes [N, 4], landmarks [N, 68, 2]) on the device of
+    the styles."""
+    from ..edit import to_uint8_hwc
+
+    until_k = until_k_for_resolution(fdc.resolution)
+    boxes_all, lm_all = [], []
+    with torch.no_grad():
+        for i in range(0, styles_array.shape[0], chunk):
+            img = synthesis(gen_params, gen_cfg, styles_array[i:i + chunk],
+                            until_k=until_k, noise_mode=fdc.noise_mode)
+            boxes = torch.from_numpy(detect_crop_boxes(
+                to_uint8_hwc(img), landmarker.mtcnn, fdc.resolution)
+                ).to(img.device)
+            lm_all.append(crop_landmarks(landmarker.params, img, boxes))
+            boxes_all.append(boxes)
+    return torch.cat(boxes_all), torch.cat(lm_all)
+
+
+def make_landmarks_metric_fn(gen_params, gen_cfg: GeneratorConfig,
+                             fdc: FindDirectionConfig, landmarker):
+    """The logging-only landmarks metric (the reference's
+    compute_landmarks_loss): render the original and edited batches,
+    detect 68 landmarks on each (MTCNN → MobileNet), MSE over the
+    non-jawline points; 0 when an original has no face, the originals'
+    landmarks where an edit has none. metric(direction [1, 26, 512],
+    styles [B, 26, 512]) → float."""
+    from ..edit import to_uint8_hwc
+
+    until_k = until_k_for_resolution(fdc.resolution)
+
+    def render(styles):
+        with torch.no_grad():
+            return to_uint8_hwc(synthesis(gen_params, gen_cfg, styles,
+                                          until_k=until_k,
+                                          noise_mode=fdc.noise_mode))
+
+    def metric(direction, styles):
+        lm1 = landmarker.detect_batch(list(render(styles)))
+        if lm1 is None:
+            return 0.0
+        lm2 = landmarker.detect_batch(list(render(styles + direction)))
+        if lm2 is None:
+            lm2 = lm1
+        return float(landmarks_loss(
+            torch.from_numpy(lm1.astype(np.float32)),
+            torch.from_numpy(lm2.astype(np.float32))))
+
+    return metric
 
 
 def _freeze(tree) -> None:
@@ -274,98 +420,297 @@ def _freeze(tree) -> None:
         tree.requires_grad_(False)
 
 
+def _styles_on(styles_array, dev: torch.device) -> torch.Tensor:
+    if not isinstance(styles_array, torch.Tensor):
+        styles_array = torch.tensor(np.asarray(styles_array, np.float32))
+    return styles_array.to(dev, torch.float32)
+
+
+def _initial_delta(fdc: FindDirectionConfig, dev: torch.device,
+                   resume_direction=None) -> torch.Tensor:
+    """Δs [1, 8, 512]: the trainable rows of `resume_direction`, else
+    N(0, 1)·1e-3 from a CPU `torch.Generator` seeded with fdc.seed (the
+    JAX package draws it from `jax.random`, which torch cannot
+    reproduce)."""
+    if resume_direction is not None:
+        return torch.as_tensor(np.asarray(resume_direction, np.float32)
+                               [:, TRAINABLE]).to(dev)
+    gen = torch.Generator().manual_seed(fdc.seed)
+    return (torch.randn((1, len(TRAINABLE), STYLE_DIM), generator=gen)
+            * 1e-3).to(dev)
+
+
+def _sgd_step(loss_fn, bank, delta_s, idx, lr, text_dirs=None):
+    """One SGD step (optax.sgd: params + (−lr)·g, lr rounded to float32) on
+    the batch rows `idx` of bank = (styles, id feats, clip feats, landmarks
+    refs or None). → (Δs, loss, aux, grad norm), one loss and norm per
+    prompt where Δs has a prompt axis."""
+    styles, id_all, clip_all, refs = bank
+    refs = None if refs is None else tuple(t[idx] for t in refs)
+    delta_s = delta_s.detach().requires_grad_(True)
+    loss, aux = loss_fn(delta_s, styles[idx], id_all[idx],
+                        tuple(c[idx] for c in clip_all), refs, text_dirs)
+    grads, = torch.autograd.grad(loss.sum(), delta_s)
+    with torch.no_grad():
+        delta_s = delta_s.detach() + float(np.float32(-lr)) * grads
+        grad_norm = torch.linalg.vector_norm(
+            grads.reshape(*loss.shape, -1), dim=-1)
+    return (delta_s, loss.detach(),
+            {k: torch.as_tensor(v).detach() for k, v in aux.items()},
+            grad_norm)
+
+
+def _sgd_loop(delta_s, step, n_items: int, fdc: FindDirectionConfig,
+              after_step: Optional[Callable] = None):
+    """fdc.n_epochs epochs of ceil(n_items / batch) steps, each on a batch
+    of one `RandomState(fdc.seed)` draw at the scheduled learning rate.
+    after_step(it, total, lr, idx, Δs, loss, aux, grad_norm) runs after
+    each step. → (Δs, loss history [steps, ...] numpy, info)."""
+    dev = delta_s.device
+    num_batches = math.ceil(n_items / fdc.batch_size)
+    total = num_batches * fdc.n_epochs
+    rng = np.random.RandomState(fdc.seed)
+    t0 = time.time()
+    first_step_done = None
+    history = []
+    it = 0
+    for _ in range(fdc.n_epochs):
+        for _ in range(num_batches):
+            it += 1
+            lr = schedule_lr(fdc, it, total)
+            idx = torch.as_tensor(
+                rng.randint(0, n_items, size=fdc.batch_size)).to(dev)
+            delta_s, loss, aux, grad_norm = step(delta_s, idx, lr)
+            if it == 1:
+                # one drain separates the first step (kernel builds, cuDNN
+                # and cuBLAS set-up) from the steady steps
+                loss.cpu()
+                first_step_done = time.time()
+            if after_step is not None:
+                after_step(it, total, lr, idx, delta_s, loss, aux, grad_norm)
+            history.append(loss)  # kept on the device: no sync per step
+    hist = torch.stack(history).cpu().numpy() if history else \
+        np.zeros((0,), np.float32)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    elapsed = time.time() - t0
+    info = {"time": elapsed, "iterations": it}
+    if first_step_done is not None and it > 1:
+        info["first_step_time"] = first_step_done - t0
+        info["steady_ms_per_step"] = (
+            1e3 * (elapsed - (first_step_done - t0)) / (it - 1))
+    return delta_s, hist, info
+
+
 def find_direction(gen_params, gen_cfg: GeneratorConfig, styles_array,
                    clip_models: Dict[str, Tuple], arcface_params,
                    fdc: FindDirectionConfig,
                    tokenizer=None,
                    resume_direction: Optional[np.ndarray] = None,
-                   callback: Optional[Callable] = None):
+                   callback: Optional[Callable] = None,
+                   landmarks_metric_fn: Optional[Callable] = None,
+                   landmarker=None):
     """Run the optimization on the device that holds `gen_params`. Returns
     (direction [1, 26, 512] tensor on that device, info).
 
     styles_array: [n_items, 26, 512]; clip_models: {'ViT-B/32': (cfg,
     params)}. callback(iteration, loss, aux, lr, grad_norm, direction
-    [1, 26, 512] numpy) every 10 iterations and at the last.
-
-    Without `resume_direction`, Δs starts at N(0, 1)·1e-3 drawn from a CPU
-    `torch.Generator` seeded with fdc.seed (the JAX package draws it from
-    `jax.random`, which torch cannot reproduce).
+    [1, 26, 512] numpy) every 10 iterations and at the last; its aux
+    'landmarks_loss' is landmarks_loss_coef · landmarks_metric_fn(direction,
+    batch styles) where that is given, the in-graph term with
+    fdc.landmarks_in_graph, else 0. fdc.landmarks_in_graph needs
+    `landmarker` (cv.landmarks.Landmarker). Without `resume_direction`, Δs
+    starts at `_initial_delta`'s draw.
     """
     dev = gen_params["mapping"]["w_avg"].device
-    for tree in (gen_params, arcface_params,
+    if fdc.landmarks_in_graph:
+        if fdc.split_step:
+            raise ValueError(
+                "landmarks_in_graph is not supported with split_step")
+        if landmarker is None:
+            raise ValueError("landmarks_in_graph needs a landmarker "
+                             "(MTCNN and MobileNet weights)")
+    mobilenet_params = landmarker.params if fdc.landmarks_in_graph else None
+    for tree in (gen_params, arcface_params, mobilenet_params,
                  [p for _, p in clip_models.values()]):
         _freeze(tree)
-    if not isinstance(styles_array, torch.Tensor):
-        styles_array = torch.tensor(np.asarray(styles_array, np.float32))
-    styles_array = styles_array.to(dev, torch.float32)
+    styles_array = _styles_on(styles_array, dev)
     n_items = styles_array.shape[0]
     bundles = make_clip_bundles(fdc, clip_models, tokenizer)
 
     id_feats_orig_all, clip_feats_orig_all = precompute_original_features(
         gen_params, gen_cfg, styles_array, bundles, arcface_params, fdc)
+    refs = None
+    if fdc.landmarks_in_graph:
+        refs = prepare_landmarks_refs(gen_params, gen_cfg, styles_array, fdc,
+                                      landmarker)
 
-    if resume_direction is not None:
-        delta_s = torch.as_tensor(
-            np.asarray(resume_direction, np.float32)[:, TRAINABLE]).to(dev)
-    else:
-        gen = torch.Generator().manual_seed(fdc.seed)
-        delta_s = (torch.randn((1, len(TRAINABLE), STYLE_DIM), generator=gen)
-                   * 1e-3).to(dev)
+    loss_fn = make_loss_fn(gen_params, gen_cfg, bundles, arcface_params, fdc,
+                           mobilenet_params=mobilenet_params)
+    step = functools.partial(
+        _sgd_step, loss_fn,
+        (styles_array, id_feats_orig_all, clip_feats_orig_all, refs))
 
-    loss_fn = make_loss_fn(gen_params, gen_cfg, bundles, arcface_params, fdc)
+    def after_step(it, total, lr, idx, delta_s, loss, aux, grad_norm):
+        if callback is None or (it % 10 != 0 and it != total):
+            return
+        direction = assemble_direction(delta_s)
+        aux_out = {k: float(v) for k, v in aux.items()}
+        if landmarks_metric_fn is not None and fdc.landmarks_loss_coef != 0:
+            aux_out["landmarks_loss"] = fdc.landmarks_loss_coef * float(
+                landmarks_metric_fn(direction, styles_array[idx]))
+        else:
+            aux_out.setdefault("landmarks_loss", 0.0)
+        callback(it, float(loss), aux_out, lr, float(grad_norm),
+                 direction.cpu().numpy())
 
-    num_batches = math.ceil(n_items / fdc.batch_size)
-    total_iterations = num_batches * fdc.n_epochs
+    delta_s, hist, info = _sgd_loop(_initial_delta(fdc, dev,
+                                                   resume_direction),
+                                    step, n_items, fdc, after_step)
+    info["history"] = [float(x) for x in hist]
+    return assemble_direction(delta_s), info
 
-    rng = np.random.RandomState(fdc.seed)
-    cur_iteration = 0
-    t0 = time.time()
-    first_step_done = None
-    history = []
-    for _ in range(fdc.n_epochs):
-        for _ in range(num_batches):
-            cur_iteration += 1
-            lr = schedule_lr(fdc, cur_iteration, total_iterations)
-            idx = torch.as_tensor(
-                rng.randint(0, n_items, size=fdc.batch_size)).to(dev)
-            styles = styles_array[idx]
-            id_f = id_feats_orig_all[idx]
-            clip_f = tuple(c[idx] for c in clip_feats_orig_all)
 
-            delta_s.requires_grad_(True)
-            loss, aux = loss_fn(delta_s, styles, id_f, clip_f)
-            grads, = torch.autograd.grad(loss, delta_s)
-            with torch.no_grad():
-                # optax.sgd: params + (−lr)·g, with lr rounded to float32
-                delta_s = delta_s.detach() + float(np.float32(-lr)) * grads
-                grad_norm = torch.linalg.vector_norm(grads.reshape(-1))
-            loss = loss.detach()
-            aux = {k: torch.as_tensor(v).detach() for k, v in aux.items()}
+class DirectionEngine:
+    """Prompt sweeps over one precompute: the original-image features are
+    computed once, and each prompt's CLIP anchors are passed to the step
+    (`optimize`), or P prompts train together (`optimize_batch`). Every
+    prompt runs the batch stream of `find_direction` (RandomState(fdc.seed))
+    and, fresh, its initial Δs.
 
-            if cur_iteration == 1:
-                # one drain separates the first step (kernel builds, cuDNN
-                # and cuBLAS set-up) from the steady steps
-                float(loss)
-                first_step_done = time.time()
-            if callback is not None and (cur_iteration % 10 == 0
-                                         or cur_iteration == total_iterations):
-                aux_out = {k: float(v) for k, v in aux.items()}
-                aux_out.setdefault("landmarks_loss", 0.0)
-                callback(cur_iteration, float(loss), aux_out, lr,
-                         float(grad_norm),
+        eng = DirectionEngine(params, cfg, styles, clip_models, arcface, fdc)
+        d1, info1 = eng.optimize("a face with a big smile")
+        d, info = eng.optimize_batch(["an old face", "a young face"])
+    """
+
+    def __init__(self, gen_params, gen_cfg: GeneratorConfig, styles_array,
+                 clip_models: Dict[str, Tuple], arcface_params,
+                 fdc: FindDirectionConfig, tokenizer=None):
+        if fdc.landmarks_in_graph:
+            raise ValueError("DirectionEngine does not support "
+                             "landmarks_in_graph; use find_direction()")
+        if fdc.split_step or fdc.steps_per_dispatch > 1:
+            warnings.warn(
+                "DirectionEngine runs one step per dispatch; split_step and "
+                "steps_per_dispatch are ignored on the prompt-sweep path",
+                stacklevel=2)
+        self.fdc = fdc
+        self.tokenizer = tokenizer
+        self.device = gen_params["mapping"]["w_avg"].device
+        for tree in (gen_params, arcface_params,
+                     [p for _, p in clip_models.values()]):
+            _freeze(tree)
+        self.styles_array = _styles_on(styles_array, self.device)
+        self.n_items = self.styles_array.shape[0]
+        # prompt-less bundles: the anchors come with each prompt
+        self.bundles = [CLIPBundle(cfg=clip_models[name][0],
+                                   params=clip_models[name][1], weight=w)
+                        for name, w in _clip_names_weights(fdc)]
+        self.id_feats, self.clip_feats = precompute_original_features(
+            gen_params, gen_cfg, self.styles_array, self.bundles,
+            arcface_params, fdc)
+        self._step = functools.partial(
+            _sgd_step,
+            make_loss_fn(gen_params, gen_cfg, self.bundles, arcface_params,
+                         fdc),
+            (self.styles_array, self.id_feats, self.clip_feats, None))
+
+    def _text_dirs(self, text_prompt: str, negative_text_prompt: str):
+        """One anchor dict per bundle for the prompt pair."""
+        dirs = []
+        with torch.no_grad():
+            for b in self.bundles:
+                if self.fdc.clip_loss_type in ("nada", "nada_global"):
+                    b = dataclasses.replace(b, nada_anchors=NADATextAnchors.create(
+                        b.params, b.cfg, negative_text_prompt, text_prompt,
+                        tokenizer=self.tokenizer))
+                else:
+                    b = dataclasses.replace(b, text_direction=make_text_direction(
+                        b.params, b.cfg,
+                        tokenize([text_prompt], tokenizer=self.tokenizer),
+                        tokenize([negative_text_prompt],
+                                 tokenizer=self.tokenizer)))
+                dirs.append(_anchors(b))
+        return tuple(dirs)
+
+    def optimize(self, text_prompt: str,
+                 negative_text_prompt: Optional[str] = None,
+                 resume_direction: Optional[np.ndarray] = None,
+                 callback: Optional[Callable] = None):
+        """→ (direction [1, 26, 512], info), `find_direction`'s contract.
+        callback(iteration, loss, aux, lr, direction numpy) every 10
+        iterations."""
+        fdc = self.fdc
+        neg = negative_text_prompt if negative_text_prompt is not None \
+            else fdc.negative_text_prompt
+        text_dirs = self._text_dirs(text_prompt, neg)
+
+        def after_step(it, total, lr, idx, delta_s, loss, aux, grad_norm):
+            if callback is not None and it % 10 == 0:
+                callback(it, float(loss),
+                         {k: float(v) for k, v in aux.items()}, lr,
                          assemble_direction(delta_s).cpu().numpy())
-            history.append(loss)  # kept on the device: no sync per step
 
-    direction = assemble_direction(delta_s.detach())
-    flat_history = torch.stack(history).cpu().numpy() if history else \
-        np.zeros((0,), np.float32)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    elapsed = time.time() - t0
-    info = {"history": [float(x) for x in flat_history],
-            "time": elapsed, "iterations": cur_iteration}
-    if first_step_done is not None and cur_iteration > 1:
-        info["first_step_time"] = first_step_done - t0
-        info["steady_ms_per_step"] = (
-            1e3 * (elapsed - (first_step_done - t0)) / (cur_iteration - 1))
-    return direction, info
+        delta_s, hist, info = _sgd_loop(
+            _initial_delta(fdc, self.device, resume_direction),
+            functools.partial(self._step, text_dirs=text_dirs),
+            self.n_items, fdc, after_step)
+        info["history"] = [float(x) for x in hist]
+        return assemble_direction(delta_s), info
+
+    def optimize_batch(self, text_prompts: List[str],
+                       negative_text_prompts: Optional[List[str]] = None,
+                       mesh=None,
+                       resume_directions: Optional[Sequence] = None,
+                       callback: Optional[Callable] = None):
+        """Train P directions at once, the prompt axis folded into the
+        image batch (one synthesis, CLIP and ArcFace call of P·batch_size
+        images a step). Each prompt matches its serial `optimize()` run
+        up to the summation order of the larger batch. resume_directions:
+        one direction (or None, a fresh start) per prompt.
+        callback(iteration, losses, aux arrays, lr, directions [P, 1, 26,
+        512] numpy) every 10 iterations.
+
+        → (directions [P, 1, 26, 512], info); info["history"] is [P,
+        steps]. `mesh` (sharding prompts over devices) is not ported."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "optimize_batch over a device mesh is not ported (ROADMAP "
+                "A17: multi-GPU); the port trains on one card")
+        fdc = self.fdc
+        P = len(text_prompts)
+        if negative_text_prompts is None:
+            negative_text_prompts = [fdc.negative_text_prompt] * P
+        if len(negative_text_prompts) != P:
+            raise ValueError(f"{len(negative_text_prompts)} negative prompts "
+                             f"for {P} prompts")
+        per_prompt = [self._text_dirs(t, n)
+                      for t, n in zip(text_prompts, negative_text_prompts)]
+        text_dirs = tuple(
+            {k: torch.stack([p[i][k] for p in per_prompt]) for k in anchors}
+            for i, anchors in enumerate(per_prompt[0]))
+
+        fresh = _initial_delta(fdc, self.device)
+        if resume_directions is not None:
+            if len(resume_directions) != P:
+                raise ValueError(f"{len(resume_directions)} resume "
+                                 f"directions for {P} prompts")
+            deltas = torch.stack([
+                fresh if d is None else _initial_delta(fdc, self.device, d)
+                for d in resume_directions])
+        else:
+            deltas = fresh.expand(P, *fresh.shape).clone()
+
+        def after_step(it, total, lr, idx, deltas, losses, aux, grad_norm):
+            if callback is not None and it % 10 == 0:
+                callback(it, [float(x) for x in losses.cpu()],
+                         {k: v.cpu().numpy() for k, v in aux.items()}, lr,
+                         assemble_direction(deltas).cpu().numpy())
+
+        deltas, hist, info = _sgd_loop(
+            deltas, functools.partial(self._step, text_dirs=text_dirs),
+            self.n_items, fdc, after_step)
+        info["history"] = hist.T if len(hist) else np.zeros((P, 0),
+                                                            np.float32)
+        info["prompts"] = list(text_prompts)
+        return assemble_direction(deltas), info

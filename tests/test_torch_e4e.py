@@ -12,7 +12,11 @@ same numpy inputs go through both packages:
   JAX-written file: bit-equal params, synthesis within 1e-4;
 * infer_e4e against JAX's CLI on a full IR-SE-50 checkpoint (a checkpoint
   always holds the full body) at batch 2: projected_w.npz within rtol 1e-4,
-  atol 1e-4·max|ref|, the saved reconstructions within ±1 per uint8;
+  atol 1e-4·max|ref|, the saved reconstructions within ±1 per uint8; the
+  same with --align (FFHQ alignment of 128² photos from seeded landmark
+  weights): codes within rtol 1e-2, atol 2e-3·max|ref| (the landmarks'
+  fp32 noise moves the alignment quad, and the aligned photos differ by
+  ±1 per uint8 here and there);
 * SeFa's boundaries and GANSpace / InterFaceGAN edits.
 """
 
@@ -398,12 +402,45 @@ def test_infer_e4e_matches_jax_cli(e4e_ckpts, monkeypatch):
     assert np.isfinite(got).all()
 
 
-def test_infer_e4e_refuses_align(tmp_path):
+def test_infer_e4e_align_matches_jax_cli(e4e_ckpts, tmp_path, monkeypatch):
+    """--align: both CLIs FFHQ-align two photos from the landmark files
+    (test_torch_landmarks.write_landmark_weights) before encoding; the same
+    tolerances as without it."""
+    from test_torch_landmarks import _photo, write_landmark_weights
+
+    d, _, _, jpath = e4e_ckpts
+    mtcnn_dir, mobilenet, _, _ = write_landmark_weights(str(tmp_path))
+    monkeypatch.setenv("STYLEMC_MTCNN_DIR", mtcnn_dir)
+    monkeypatch.setenv("STYLEMC_MOBILENET", mobilenet)
+    photos = tmp_path / "photos"
+    photos.mkdir()
+    for i in range(2):
+        Image.fromarray(_photo(128, seed=10 + i)).save(photos / f"p{i}.png")
+    photos = str(photos)
+    outs = {}
+    for name, cli, extra in (("jax", jax_infer_e4e.main, []),
+                             ("torch", infer_e4e.main, ["--device", "cpu"])):
+        outs[name] = str(tmp_path / name)
+        r = CliRunner().invoke(cli, [
+            "--images_dir", photos, "--ckpt", jpath, "--save_dir",
+            outs[name], "--stylegan_size", "32", "--batch", "2",
+            "--align"] + extra, catch_exceptions=False)
+        assert r.exit_code == 0, r.output
+    got, want = (np.load(os.path.join(outs[n], "projected_w.npz"))["w"]
+                 for n in ("torch", "jax"))
+    assert got.shape == want.shape == (2, 8, 512)
+    # the landmarks' fp32 noise (1e-4 of their values) moves the quad, so
+    # the aligned photos differ by ±1 per uint8 here and there (held in
+    # test_torch_landmarks.test_align_faces_cli_matches_jax)
+    _close(got, want, rtol=1e-2, atol_rel=2e-3)
+    # aligned and unaligned photos encode differently
     r = CliRunner().invoke(infer_e4e.main, [
-        "--images_dir", str(tmp_path), "--ckpt", "missing.pt", "--align",
-        "--device", "cpu"])
-    assert r.exit_code != 0
-    assert "A11" in r.output and "--align" in r.output
+        "--images_dir", photos, "--ckpt", jpath, "--save_dir",
+        str(tmp_path / "plain"), "--stylegan_size", "32", "--batch", "2",
+        "--device", "cpu"], catch_exceptions=False)
+    assert r.exit_code == 0, r.output
+    plain = np.load(str(tmp_path / "plain" / "projected_w.npz"))["w"]
+    assert np.abs(plain - got).max() > 1e-3
 
 
 def test_serve_from_files_attaches_the_e4e_ckpt(e4e_ckpts):

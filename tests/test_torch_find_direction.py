@@ -9,6 +9,7 @@ summation-order noise. Loss history agrees to rtol 1e-4 and the final
 direction to atol 1e-4; one NADA loss value and its gradient to atol 1e-5.
 """
 
+import functools
 import importlib
 import os
 
@@ -22,11 +23,13 @@ from click.testing import CliRunner
 from fabricate import fabricate_clip_dir
 from stylemc_tpu.models.clip import FallbackTokenizer as JaxTokenizer
 from stylemc_tpu.models.stylegan2.generator import mapping, w_to_s
+from stylemc_tpu.utils import model_zoo as jzoo
 from stylemc_torch.convert import params_from_numpy
 from stylemc_torch.models.clip import FallbackTokenizer
 from stylemc_torch.models.stylegan2.generator import (
     GeneratorConfig, S_TRAINABLE_SPACE_CHANNELS)
 from stylemc_torch.train import find_direction as tfd
+from stylemc_torch.utils import model_zoo as tzoo
 from test_pickle_loader import fabricate_pkl
 from test_torch_perception import write_arcface_pth
 from tiny import TINY_ARCFACE_LAYOUT, tiny_arcface, tiny_clip_models, tiny_gen
@@ -202,10 +205,19 @@ def test_remat_and_bf16_policies(setup):
     np.testing.assert_allclose(info["history"], pinfo["history"], rtol=0.1)
 
 
-def test_landmarks_in_graph_is_refused(setup):
+def test_landmarks_in_graph_refusals_match_jax(setup):
+    """landmarks_in_graph needs a landmarker and refuses split_step, as
+    JAX's find_direction does (its asserts)."""
     _, torch_side, styles = setup
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="needs a landmarker"):
         _run_torch(torch_side, styles, landmarks_in_graph=True)
+    cfg, gp, clips, arc = torch_side
+    with pytest.raises(ValueError, match="split_step"):
+        tfd.find_direction(
+            gp, cfg, styles, clips, arc,
+            tfd.FindDirectionConfig(**_kw(landmarks_in_graph=True,
+                                          split_step=True)),
+            tokenizer=FallbackTokenizer(), landmarker=object())
 
 
 # ------------------------------------------------------------------------ CLI
@@ -227,6 +239,19 @@ def cli_files(tmp_path_factory, setup):
            "STYLEMC_CLIP_BPE": os.path.join(clip_dir,
                                             "bpe_simple_vocab_16e6.txt.gz")}
     return root, pkl, s_file, r_file, env
+
+
+@pytest.fixture
+def tiny_arcface_clis(setup, monkeypatch):
+    """Both CLIs with the tiny ArcFace of `setup` (its layout in every
+    FindDirectionConfig they make) in place of IR-SE-50."""
+    arc = setup[0][3]
+    monkeypatch.setattr(jzoo, "load_arcface", lambda *a, **kw: arc)
+    monkeypatch.setattr(tzoo, "load_arcface", lambda *a, device=None, **kw:
+                        params_from_numpy(arc, device))
+    for mod in (jfd, tfd):
+        monkeypatch.setattr(mod, "FindDirectionConfig", functools.partial(
+            mod.FindDirectionConfig, arcface_layout=TINY_ARCFACE_LAYOUT))
 
 
 def test_cli_writes_the_direct_calls_direction(cli_files, monkeypatch):
@@ -291,14 +316,25 @@ def test_run_logger_writes_jsonl_and_never_starts_wandb(tmp_path,
 
 
 @pytest.mark.parametrize("args,match", [
-    (["--text_prompts", "a|b"], "A10"),
-    (["--landmarks_grad"], "A11"),
+    (["--text_prompts", "a|b", "--landmarks_grad"],
+     "--landmarks_grad is not supported with --text_prompts"),
+    (["--negative_text_prompts", "c|d"],
+     "--negative_text_prompts requires --text_prompts"),
+    (["--text_prompts", "a|b", "--negative_text_prompts", "c"],
+     "count must match --text_prompts"),
+    (["--text_prompts", "a|b", "--resume", "DIR"],
+     "requires --text_prompts --batch_prompts"),
 ])
-def test_cli_refuses_what_is_not_ported(cli_files, args, match):
+def test_cli_refuses_what_jax_refuses(cli_files, args, match):
+    """The port's CLI and JAX's refuse the same flag combinations, with
+    the same words, before anything is loaded."""
     from stylemc_torch.cli.find_direction import main
+    from stylemc_tpu.cli.find_direction import main as jax_main
 
     root, pkl, s_file, _, _ = cli_files
-    r = CliRunner().invoke(main, ["--network", pkl, "--s_input", s_file,
-                                  "--outdir", str(root / "x"),
-                                  "--device", "cpu"] + args)
-    assert r.exit_code != 0 and match in r.output
+    args = [str(root) if a == "DIR" else a for a in args]
+    for cli, extra in ((main, ["--device", "cpu"]), (jax_main, [])):
+        r = CliRunner().invoke(cli, ["--network", pkl, "--s_input", s_file,
+                                     "--outdir", str(root / "x")]
+                               + args + extra)
+        assert r.exit_code != 0 and match in r.output, r.output

@@ -57,8 +57,9 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # 49 modules before the e4e slice, which adds 9
-    assert len(_modules()) >= 58
+    # 49 modules before the e4e slice, which adds 9; the landmarks stack
+    # and align_faces add 12
+    assert len(_modules()) >= 70
     for m in ("stylemc_torch.ops.kernels.modconv",
               "stylemc_torch.bench.fused_layer_ab",
               "stylemc_torch.bench.timing",
@@ -72,7 +73,14 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
               "stylemc_torch.models.e4e.encoders",
               "stylemc_torch.models.e4e.psp",
               "stylemc_torch.models.e4e.editings",
-              "stylemc_torch.data.images", "stylemc_torch.cli.infer_e4e"):
+              "stylemc_torch.data.images", "stylemc_torch.cli.infer_e4e",
+              "stylemc_torch.losses.landmarks_loss", "stylemc_torch.ops.image",
+              "stylemc_torch.models.mobilenet",
+              "stylemc_torch.models.mtcnn", "stylemc_torch.models.mtcnn.nets",
+              "stylemc_torch.models.mtcnn.detect", "stylemc_torch.native",
+              "stylemc_torch.native.build", "stylemc_torch.cv",
+              "stylemc_torch.cv.landmarks", "stylemc_torch.cv.align",
+              "stylemc_torch.cli.align_faces"):
         assert m in _modules()
 
 
@@ -98,6 +106,11 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from stylemc_torch.models.clip import CLIP_CONFIGS, init_clip_params
     from stylemc_torch.models.e4e.encoders import init_encoder_params
     from stylemc_torch.models.e4e.psp import load_psp_from_checkpoint
+    from stylemc_torch.cli.align_faces import main as align_faces_main
+    from stylemc_torch.cv.landmarks import default_landmarker
+    from stylemc_torch.models.mobilenet import init_mobilenet_gdconv_params
+    from stylemc_torch.models.mtcnn.detect import MTCNN
+    from stylemc_torch.models.mtcnn.nets import init_net_params
     from stylemc_torch.serve import BatchEditor
     from stylemc_torch.utils.model_zoo import load_arcface, load_clip_models
 
@@ -118,14 +131,19 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                                           CLIP_CONFIGS["ViT-B/32"]),
                  lambda: BatchEditor.from_files(net, e4e_ckpt="e4e.pt"),
                  lambda: load_psp_from_checkpoint("e4e.pt"),
-                 lambda: init_encoder_params(torch.Generator())):
+                 lambda: init_encoder_params(torch.Generator()),
+                 lambda: init_net_params(torch.Generator(), "pnet"),
+                 lambda: init_mobilenet_gdconv_params(torch.Generator()),
+                 lambda: MTCNN.from_weights_dir(str(tmp_path)),
+                 lambda: default_landmarker(str(tmp_path), net)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    # so does the e4e inversion CLI
-    r = CliRunner().invoke(infer_e4e_main, [
-        "--images_dir", str(tmp_path), "--ckpt", "e4e.pt"])
-    assert isinstance(r.exception, RuntimeError), r.output
-    assert "device='cpu'" in str(r.exception)
+    # so do the e4e inversion and alignment CLIs
+    for cli, args in ((infer_e4e_main, ["--ckpt", "e4e.pt"]),
+                      (align_faces_main, ["--out_dir", str(tmp_path / "a")])):
+        r = CliRunner().invoke(cli, ["--images_dir", str(tmp_path)] + args)
+        assert isinstance(r.exception, RuntimeError), r.output
+        assert "device='cpu'" in str(r.exception)
     # the training CLI defaults to cuda and raises before loading anything
     s_file = str(tmp_path / "s.npz")
     np.savez(s_file, s=np.zeros((4, 26, 512), np.float32))
