@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive stylemc_torch's serving, training (single prompt, prompt sweeps,
-the landmarks loss) and real-image editing paths and its fused-layer A/B
-on one CUDA card and check them.
+the landmarks loss, the latent mapper), real-image editing and DeepLab
+feature-blending paths and its fused-layer A/B on one CUDA card and check
+them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -19,10 +20,12 @@ script exits non-zero:
           timed as the kernels are); B1 (upsample2x) against its plain torch
           version at every ToRGB chain shape of FFHQ-256 at batch 16, the
           two larger planes of FFHQ-1024's chain at batch 16 ([16,3,256²],
-          [16,3,512²]; the e4e decoder's), the 1024 px plane and two odd
-          shapes; B2 (downsample2x) at the training
-          step's backward shapes [4,3,2h,2h], the 1024 px plane and two odd
-          shapes; both on an input 4 bytes off alignment; max |err| <= 1e-5;
+          [16,3,512²]; the e4e decoder's), the 1024 px plane, two odd
+          shapes and a mapper step's chain [2,3,h,h], h = 4..256; B2
+          (downsample2x) at the training step's backward shapes
+          [4,3,2h,2h], the 1024 px plane, two odd shapes and a mapper
+          step's backward shapes [2,3,2h,2h] up to 512²; both on an input 4
+          bytes off alignment; max |err| <= 1e-5;
           kernel, plain, library-call and bound times (device time: CUDA
           events around calls queued behind a sleep kernel), each row with
           its launch plan, the floor and the aim (floor + 1.5 x bound), and
@@ -138,15 +141,55 @@ script exits non-zero:
           within ±1 per uint8.
           e4e_align: align_faces on the 8 photos (256² FFHQ crops from the
           landmark files), then infer_e4e --align, as subprocesses
+  mapper  train_latent_mapper at full width: a seeded FFHQ-1024 generator
+          (channel_base 32768, channel_max 512, 8 mapping layers, saved as
+          a native .npz) rendered to 512 px (until_k 7), the train phase's
+          CLIP and ArcFace, MapperTrainConfig's defaults (batch 2, Adam lr
+          5e-4, clip_type double), fp32, 129 seeds, one epoch (65 steps):
+          precompute seconds, ms/step over steps 2-65, images/s, peak
+          memory; one profiled Adam step's device time by kernel name and
+          its idle share (mapper_breakdown)
+  mapper_parity  one full-width mapper step (batch 2, seeds 1-2) from the
+          same seeded mapper on the card and on the CPU: loss rtol 1e-6,
+          the 20 gradients relative L2 1e-3; Adam's step from the card's
+          gradient on both sides, the mapper's outputs after it relative
+          L2 1e-4 (each side's outputs after its own step, the gradient
+          sign flips and the identity term's image gradient against float64
+          recorded beside them)
+  deeplab the full-width face parser (ResNet-101 (3, 4, 23, 3), width 64,
+          19 classes, seeded, written in the reference's 'module.'
+          state_dict layout, read by default_segmenter via STYLEMC_DEEPLAB)
+          on a seeded image: ms per network and per segment call at 513²,
+          the device split by kernel name (deeplab_breakdown); each stage
+          (stem, 33 bottlenecks, ASPP, upsample) on the card fed the CPU's
+          input to it, within relative L2 1e-4 of the CPU's output; the
+          end-to-end logits card against CPU and each side against float64
+          recorded; class maps equal where the top-two gap exceeds 1e-3 of
+          the logits' largest magnitude, the other pixels counted
+  mapper_clis  on 8 seeds, as subprocesses: train_latent_mapper (one
+          epoch, --network2 a second seeded FFHQ-1024 generator),
+          generate_fromS --use_mapper 1 --use_whitelist 1, generate_fromS
+          --use_mapper 1 --use_blending 1, run_deeplab on the blended JPEGs;
+          one item blended on the card and on the CPU, both fed the card's
+          masks: renders within ±1
+  mapper_serve  BatchEditor.from_files(ffhq256, mapper=) with a seeded
+          mapper: an HTTP /edit answer, images/s at batch 16 and 64 beside
+          a plain direction, the mapper's directions on the card against
+          the CPU's (max |err| 1e-5), two seeds' renders within ±1
+  Every card-against-CPU gate of the mapper and DeepLab phases is a fixed
+  constant, read beside a TF32 control of the card's side (TF32 in cuDNN
+  and cuBLAS) that must fail it.
 
 Each path that renders or trains (the HTTP requests, the throughput calls,
 the parity render on the card, the precompute, the training steps, the
 one-step parity, each CLI, and each e4e path) is driven with every
 kernel's launch count set to 0 just before it and read just after; each
 must show B1 launched once per upper block of each synthesis call (6 at
-FFHQ-256, 8 at FFHQ-1024), B2 6 times per backward pass, and B3/B4/B5
-never (the generator runs the unfused layer, as the JAX generator does);
-the e4e encoder launches none of them.
+FFHQ-256, 8 at FFHQ-1024, 7 for a mapper step's 512 px render of
+FFHQ-1024), B2 once per upper block of each backward pass (6, or 7 for a
+mapper step), and B3/B4/B5 never (the generator runs the unfused layer, as
+the JAX generator does); the e4e encoder, the mapper network and DeepLab
+launch none of them.
 
 Then the card's nvidia-smi line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -193,6 +236,11 @@ TRAIN_DOWN_SHAPES = [(4, 3, 2 * h, 2 * h) for h in (4, 8, 16, 32, 64, 128)]
 # 4-byte path)
 DOWN_SHAPES = TRAIN_DOWN_SHAPES + [(1, 3, 1024, 1024), (2, 5, 6, 10),
                                    (2, 5, 10, 14)]
+# one mapper training step (FFHQ-1024 at 512 px, until_k 7, batch 2): B1's
+# inputs in its synthesis call, B2's in its backward pass
+MAPPER_UP_SHAPES = [(2, 3, h, h) for h in (4, 8, 16, 32, 64, 128, 256)]
+MAPPER_DOWN_SHAPES = [(2, 3, 2 * h, 2 * h) for h in (4, 8, 16, 32, 64, 128,
+                                                     256)]
 # B1 and B2 on an input that starts 4 bytes past an aligned allocation (the
 # wrapper takes the 4-byte path for it)
 OFFSET_SHAPE = (2, 5, 6, 10)
@@ -442,12 +490,13 @@ def phase_kernel(torch):
     return floor_ms, {
         "upsample2x": _kernel_rows(
             torch, "upsample2x",
-            CHAIN_SHAPES + E4E_CHAIN_EXTRA + EXTRA_SHAPES,
+            CHAIN_SHAPES + E4E_CHAIN_EXTRA + EXTRA_SHAPES + MAPPER_UP_SHAPES,
             upsample2d_kernel, launch_upsample, upsample2d_plain, up_taps,
             upsample_bound, library_upsample, up_taps,
             lambda s: upsample_plan(s[0] * s[1], s[2], s[3]), floor_ms),
         "downsample2x": _kernel_rows(
-            torch, "downsample2x", DOWN_SHAPES, downsample2d_kernel,
+            torch, "downsample2x", DOWN_SHAPES + MAPPER_DOWN_SHAPES,
+            downsample2d_kernel,
             launch_downsample, downsample2d_plain, down_taps,
             downsample_bound, library_downsample, down_taps[::-1],
             lambda s: downsample_plan(s[0] * s[1], s[2], s[3]),
@@ -1054,14 +1103,18 @@ def count_launches(fn):
 
 
 def record_launches(paths, cfg, path, launches, synthesis_calls,
-                    backward_calls=0) -> None:
+                    backward_calls=0, upper_blocks=None) -> None:
     """Keep a path's launch counts and hold them to one B1 launch per upper
     block of each synthesis call, one B2 launch per upper block of each
     backward pass through it, and no B3/B4/B5 launch: the generator runs
-    the unfused layer, as the JAX generator does."""
-    per_call = len(cfg.block_resolutions) - 1
+    the unfused layer, as the JAX generator does. `upper_blocks` is the
+    upper blocks a call renders (until_k of a partial-resolution call, e.g.
+    7 for a 512 px mapper step of FFHQ-1024); by default all of cfg's."""
+    per_call = len(cfg.block_resolutions) - 1 if upper_blocks is None \
+        else upper_blocks
     paths[path] = {"launches": launches, "synthesis_calls": synthesis_calls,
-                   "backward_calls": backward_calls}
+                   "backward_calls": backward_calls,
+                   "upper_blocks": per_call}
     want = {"upsample2x": per_call * synthesis_calls,
             "downsample2x": per_call * backward_calls,
             **{name: 0 for name in MODCONV_KERNELS}}
@@ -1369,7 +1422,7 @@ print(json.dumps({k: c.launches for k, c in counters.items()}))
 
 
 def run_cli(paths, cfg, path, name, synthesis_calls, backward_calls, *args,
-            env=None):
+            env=None, upper_blocks=None):
     """Run `stylemc_torch.cli.<name>` in a subprocess (with `env` added to
     its environment) and hold the launch counts it reports to
     `record_launches` under `path`; (seconds, stdout)."""
@@ -1383,7 +1436,7 @@ def run_cli(paths, cfg, path, name, synthesis_calls, backward_calls, *args,
                            f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
     launches = json.loads(proc.stdout.strip().splitlines()[-1])
     record_launches(paths, cfg, path, launches, synthesis_calls,
-                    backward_calls)
+                    backward_calls, upper_blocks)
     return time.perf_counter() - t0, proc.stdout
 
 
@@ -2823,6 +2876,696 @@ def phase_e4e_align(ckpt, photos, inv_codes, tmp, files, paths):
         raise AssertionError(f"e4e align checks failed: {checks}")
 
 
+# --------------------------------------- the latent mapper and DeepLab
+
+MAPPER_SEEDS = 129
+# FFHQ-1024 generators' weight seeds: --network and --network2
+MAPPER_NET_SEEDS = (10, 11)
+MAPPER_SEED = 12          # the seeded mapper of the parity and serving phases
+MAPPER_UNTIL_K = 7        # a mapper step renders FFHQ-1024 to 512 px
+MAPPER_PROMPT = "smiling face"
+# the mapper step's loss, card against CPU: fp32 reads ~7e-8, and TF32
+# ~9e-6, which 1e-4 would not tell from fp32
+MAPPER_LOSS_RTOL = 1e-6
+MAPPER_OUT_REL_L2 = 1e-4
+MAPPER_DIRECTION_ATOL = 1e-5
+MAPPER_CLI_SEEDS = 8
+DEEPLAB_SEED = 13
+# the blended renders, card against CPU on the card's masks: the share of
+# uint8 values that differ (by one at most)
+BLEND_OFF_SHARE = 1e-3
+# each stage's output, card against CPU on the same input
+DEEPLAB_STAGE_REL_L2 = 1e-4
+# class maps are held where the top-two logit gap exceeds this share of the
+# logits' largest magnitude
+DEEPLAB_TIE_GAP = 1e-3
+
+
+def make_ffhq1024(torch, tmp, seed):
+    """Full-width FFHQ-1024 generator (channel_base 32768, channel_max 512,
+    8 mapping layers) with random weights from `seed`, saved as a native
+    .npz the way `make_network` saves FFHQ-256. Its ToRGB weights are
+    scaled by E4E_TORGB_SCALE, as the e4e decoder's are, so that renders
+    lie mostly inside [-1, 1] and the uint8 comparisons read values, not
+    the clip at 0 and 255."""
+    from stylemc_torch.io import save_native
+    from stylemc_torch.models.stylegan2.generator import (
+        GeneratorConfig, init_generator_params)
+
+    cfg = GeneratorConfig(img_resolution=1024)
+    params = init_generator_params(torch.Generator().manual_seed(seed), cfg,
+                                   device="cpu")
+    for bp in params["synthesis"].values():
+        bp["torgb"]["weight"] *= E4E_TORGB_SCALE
+    path = os.path.join(tmp, f"ffhq1024_seed{seed}.npz")
+    save_native(path, cfg, params)
+    return cfg, path
+
+
+def seed_styles(torch, gp, cfg, seeds, device):
+    """S-space styles of `seeds` as `BatchEditor.styles_from_seeds` makes
+    them: z from np.random.RandomState(seed), truncation 0.7."""
+    import numpy as np
+
+    from stylemc_torch.models.stylegan2.generator import mapping, w_to_s
+
+    zs = np.concatenate([np.random.RandomState(s).randn(1, cfg.z_dim)
+                         for s in seeds]).astype(np.float32)
+    with torch.no_grad():
+        ws = mapping(gp, cfg, torch.from_numpy(zs).to(device),
+                     truncation_psi=0.7)
+        return w_to_s(gp, cfg, ws)
+
+
+def seeded_mapper(torch, seed, device):
+    from stylemc_torch.models.mapper import init_mapper_params
+
+    return init_mapper_params(torch.Generator().manual_seed(seed),
+                              device=device)
+
+
+def _gate(name, value, control, gate, record):
+    """Keep a gate's reading and its TF32 control's beside the fixed gate;
+    the reading must pass it and the control must fail it."""
+    record[name] = {"value": value, "tf32_control": control, "gate": gate}
+    if not value <= gate:
+        raise AssertionError(f"{name}: {value} > {gate}")
+    if not control > gate:
+        raise AssertionError(f"{name}: the TF32 control {control} passes "
+                             f"the gate {gate}")
+
+
+def phase_mapper(torch, models, net, smi, paths):
+    """train_latent_mapper at full width: the FFHQ-1024 generator at 512 px
+    (until_k 7), the train phase's CLIP ViT-B/32 + B/16 and IR-SE-50,
+    MapperTrainConfig's defaults (batch 2, Adam lr 5e-4), fp32, TF32 off,
+    MAPPER_SEEDS seeds, one epoch; then one Adam step profiled."""
+    import copy
+
+    import numpy as np
+
+    from stylemc_torch.bench.timing import card_state
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.models.clip import FallbackTokenizer
+    from stylemc_torch.models.mapper import mapper_apply
+    from stylemc_torch.train.find_direction import (
+        TRAINABLE, make_clip_bundles, make_loss_fn,
+        precompute_original_features)
+    from stylemc_torch.train.latent_mapper import (
+        MapperTrainConfig, _adam_step, make_mapper_edit, train_latent_mapper)
+
+    clip, arc = models[4], models[5]
+    cfg, gp = load_generator(net, device="cuda")   # polyphase up-convs
+    styles = seed_styles(torch, gp, cfg, range(MAPPER_SEEDS), "cuda")
+    mtc = MapperTrainConfig(n_epochs=1, text_prompt=MAPPER_PROMPT)
+    tok = FallbackTokenizer()
+    logged = []
+
+    def callback(it, loss, aux, lr, grad_norm, mapper):
+        logged.append({"it": it, "loss": loss, "lr": lr,
+                       "grad_norm": grad_norm})
+
+    torch.cuda.reset_peak_memory_stats()
+    before = card_state()
+    t0 = time.perf_counter()
+    (mapper, info), launches = count_launches(lambda: train_latent_mapper(
+        gp, cfg, styles, clip, arc, mtc, tokenizer=tok, callback=callback))
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    states = [before, card_state()]
+    steps = info["iterations"]
+    record_launches(paths, cfg, "mapper", launches,
+                    -(-MAPPER_SEEDS // 8) + steps, steps,
+                    upper_blocks=MAPPER_UNTIL_K)
+    hist = np.asarray(info["history"])
+    steady = info["steady_ms_per_step"]
+    x = styles[:4, TRAINABLE]
+    with torch.no_grad():
+        moved = float((mapper_apply(mapper, x, mtc.mapper_neg_slope)
+                       - mapper_apply(seeded_mapper(torch, mtc.seed, "cuda"),
+                                      x, mtc.mapper_neg_slope)).abs().max())
+    checks = {"steps": steps == -(-MAPPER_SEEDS // mtc.batch_size),
+              "history_finite": bool(np.isfinite(hist).all()),
+              "history_len": len(hist) == steps,
+              "callback_every_10": [r["it"] for r in logged]
+              == list(range(10, steps + 1, 10)),
+              "mapper_moved": moved > 0}
+    emit({"phase": "mapper", "card": smi, "seeds": MAPPER_SEEDS,
+          "generator": "FFHQ-1024 (channel_base 32768, channel_max 512, "
+                       "8 mapping layers), random weights",
+          "resolution": mtc.resolution, "until_k": MAPPER_UNTIL_K,
+          "batch": mtc.batch_size, "clip_type": mtc.clip_type,
+          "precision": "fp32", "learning_rate": mtc.learning_rate,
+          "precompute_s": wall_s - info["time"],
+          "first_step_s": info["first_step_time"],
+          "steady_ms_per_step": steady, "steps_per_s": 1e3 / steady,
+          "images_per_s": mtc.batch_size * 1e3 / steady,
+          "time_s": info["time"], "peak_mem_bytes": peak,
+          "loss_first_last": [hist[0], hist[-1]], "logged": logged,
+          "mapper_output_moved": moved, "card_state": states,
+          "launches": launches, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"mapper checks failed: {checks}")
+
+    # one Adam step on a copy of the trained mapper, profiled
+    bundles = make_clip_bundles(mtc, clip, tok)
+    s2 = styles[:2]
+    id2, clip2 = precompute_original_features(gp, cfg, s2, bundles, arc, mtc,
+                                              chunk=2)
+    m = copy.deepcopy(mapper)
+    opt = torch.optim.Adam(m.parameters(), lr=mtc.learning_rate,
+                           betas=(0.9, 0.999), eps=1e-8)
+    loss_fn = make_loss_fn(gp, cfg, bundles, arc, mtc,
+                           edit_fn=make_mapper_edit(mtc.mapper_neg_slope))
+    idx = torch.arange(2, device="cuda")
+    emit({"phase": "mapper_breakdown", "card": smi,
+          **device_breakdown(torch, lambda: _adam_step(
+              loss_fn, (s2, id2, clip2, None), opt, m, idx,
+              mtc.learning_rate), top=15)})
+    return cfg, styles
+
+
+def phase_mapper_parity(torch, models, net, smi, paths):
+    """One full-width mapper step (batch 2, seeds 1-2) from the seeded
+    mapper, on the card and on the CPU: the loss (rtol 1e-6) and the 20
+    gradients concatenated (relative L2 1e-3, PARITY_GRAD_REL_L2); then
+    Adam's step from the card's gradient on both sides, the mapper's
+    outputs on the two items after it within relative L2 1e-4 (fed the
+    same gradient, as the blending parity is fed the same masks: Adam's
+    first step is lr·sign(g) elementwise, so gradients 1e-3 apart flip the
+    sign of their near-zero elements). Each gate beside a TF32 control of
+    the card's side that must fail it. Recorded beside them, not gated:
+    each side's outputs after its own Adam step, the elements whose
+    gradient signs differ, and the identity term's image gradient at the
+    card's render on each side against float64 ArcFace on the CPU. The
+    step's learning rate is the first of a default run (10 epochs over
+    MAPPER_SEEDS seeds)."""
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.losses.id_loss import extract_feats
+    from stylemc_torch.models.clip import FallbackTokenizer
+    from stylemc_torch.models.mapper import (
+        mapper_apply, params_from_torch_state, params_to_torch_state)
+    from stylemc_torch.models.stylegan2.generator import synthesis
+    from stylemc_torch.train.find_direction import (
+        TRAINABLE, cosine_lr, make_clip_bundles, make_loss_fn,
+        precompute_original_features)
+    from stylemc_torch.train.latent_mapper import (
+        MapperTrainConfig, _adam_step, make_mapper_edit)
+
+    clip_cpu, arc_cpu, clip, arc = models[2:]
+    cfg, gp = load_generator(net, device="cuda")
+    _, gp_cpu = load_generator(net, device="cpu")
+    styles = seed_styles(torch, gp, cfg, [1, 2], "cuda")
+    mtc = MapperTrainConfig(batch_size=2, text_prompt=MAPPER_PROMPT)
+    lr = cosine_lr(mtc.learning_rate, 1,
+                   -(-MAPPER_SEEDS // mtc.batch_size) * mtc.n_epochs)
+    state = params_to_torch_state(seeded_mapper(torch, MAPPER_SEED, "cpu"))
+    edit = make_mapper_edit(mtc.mapper_neg_slope)
+    tok = FallbackTokenizer()
+
+    def adam(m):
+        return torch.optim.Adam(m.parameters(), lr=lr, betas=(0.9, 0.999),
+                                eps=1e-8)
+
+    def outputs(m, s):
+        with torch.no_grad():
+            return mapper_apply(m, s[:, TRAINABLE],
+                                mtc.mapper_neg_slope).cpu()
+
+    def step(gparams, clips, arcface, s, device):
+        bundles = make_clip_bundles(mtc, clips, tok)
+        id_f, clip_f = precompute_original_features(
+            gparams, cfg, s, bundles, arcface, mtc, chunk=2)
+        m = params_from_torch_state(state, device)
+        with torch.no_grad():
+            img = synthesis(gparams, cfg, edit(m, s), until_k=MAPPER_UNTIL_K)
+        loss_fn = make_loss_fn(gparams, cfg, bundles, arcface, mtc,
+                               edit_fn=edit)
+        _, loss, aux, grad_norm = _adam_step(
+            loss_fn, (s, id_f, clip_f, None), adam(m), m,
+            torch.arange(2, device=device), lr)
+        grads = torch.cat([p.grad.reshape(-1) for p in m.parameters()])
+        return (float(loss), {k: float(v) for k, v in aux.items()},
+                float(grad_norm), grads.cpu(), outputs(m, s), img.cpu(),
+                id_f.cpu())
+
+    def step_from(grads, s, device):
+        """Adam's step from `grads` (flat), on a fresh seeded mapper."""
+        m = params_from_torch_state(state, device)
+        lo = 0
+        for p in m.parameters():
+            p.grad = grads[lo:lo + p.numel()].reshape(p.shape).to(device)
+            lo += p.numel()
+        adam(m).step()
+        return outputs(m, s)
+
+    (loss, aux, gn, g, out, img, id_f), launches = count_launches(
+        lambda: step(gp, clip, arc, styles, "cuda"))
+    # the precompute, the render and the step: three synthesis calls, one
+    # backward pass
+    record_launches(paths, cfg, "mapper_parity", launches, 3, 1,
+                    upper_blocks=MAPPER_UNTIL_K)
+    fed = step_from(g, styles, "cuda")
+    with tf32_control(torch):
+        loss_t, _, _, g_t, _, _, _ = step(gp, clip, arc, styles, "cuda")
+        fed_t = step_from(g, styles, "cuda")
+    t0 = time.perf_counter()
+    (loss_c, aux_c, gn_c, g_c, out_c, _, _), cpu_launches = count_launches(
+        lambda: step(gp_cpu, clip_cpu, arc_cpu, styles.cpu(), "cpu"))
+    fed_c = step_from(g, styles.cpu(), "cpu")
+    cpu_s = time.perf_counter() - t0
+
+    def identity_grad(arcface, x, feats):
+        x = x.requires_grad_(True)
+        term = mtc.identity_loss_coef * torch.mean(1.0 - torch.sum(
+            extract_feats(arcface, x, mtc.arcface_layout) * feats, dim=1))
+        return torch.autograd.grad(term, x)[0].cpu().double()
+
+    def f64(tree):
+        return {k: f64(v) if isinstance(v, dict) else v.double()
+                for k, v in tree.items()}
+
+    id64 = identity_grad(f64(arc_cpu), img.double(), id_f.double())
+    flips = torch.sign(g) != torch.sign(g_c)
+    readings = {
+        "loss_rel": (abs(loss - loss_c) / abs(loss_c),
+                     abs(loss_t - loss_c) / abs(loss_c), MAPPER_LOSS_RTOL),
+        "grad_rel_l2": (_rel(g, g_c), _rel(g_t, g_c), PARITY_GRAD_REL_L2),
+        "output_rel_l2_same_gradient": (_rel(fed, fed_c), _rel(fed_t, fed_c),
+                                        MAPPER_OUT_REL_L2)}
+    emit({"phase": "mapper_parity", "card": smi, "loss": loss,
+          "cpu_loss": loss_c, "aux": aux, "cpu_aux": aux_c,
+          "grad_norm": gn, "cpu_grad_norm": gn_c, "learning_rate": lr,
+          "gates": {k: {"value": v, "tf32_control": t, "gate": gate}
+                    for k, (v, t, gate) in readings.items()},
+          "output_rel_l2_own_gradients": _rel(out, out_c),
+          "gradient_sign_flips": int(flips.sum()),
+          "gradient_elements": int(g.numel()),
+          "flipped_max_abs_over_rms": float(
+              g_c[flips].abs().max() / g_c.square().mean().sqrt())
+          if flips.any() else 0.0,
+          "identity_image_grad_rel_l2_to_fp64": {
+              "card_fp32": _rel(identity_grad(arc, img.cuda(), id_f.cuda())
+                                .cpu(), id64),
+              "cpu_fp32": _rel(identity_grad(arc_cpu, img.clone(), id_f),
+                               id64)},
+          "cpu_s": cpu_s, "launches": launches,
+          "cpu_launches": cpu_launches})
+    if any(cpu_launches.values()):
+        raise AssertionError("the CPU step launched a CUDA kernel")
+    for name, reading in readings.items():
+        _gate(name, *reading, {})
+
+
+def deeplab_image(size=512, seed=DEEPLAB_SEED):
+    """A seeded uint8 image: a smooth random field plus pixel noise."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    low = Image.fromarray((rs.rand(8, 8, 3) * 255).astype(np.uint8))
+    img = np.asarray(low.resize((size, size), Image.BICUBIC), np.float32)
+    return np.clip(img + rs.randn(size, size, 3) * 8, 0,
+                   255).astype(np.uint8)
+
+
+def phase_deeplab(torch, cfg, tmp, smi, paths):
+    """The full-width face parser (ResNet-101 layers (3, 4, 23, 3), width
+    64, 19 classes) from seeded weights, written in the reference's
+    checkpoint layout and read by default_segmenter through
+    STYLEMC_DEEPLAB: ms per network and per `segment` call at 513² and the
+    device split by kernel name. Card against CPU, each stage (the stem,
+    the 33 bottlenecks, ASPP, the upsample) fed the CPU's input to it,
+    every stage's output within relative L2 1e-4 beside the TF32 control
+    (fp32 error grows through the 33 bottlenecks: the end-to-end logits,
+    each side against float64 on the CPU, are recorded, not gated); the
+    class maps equal wherever the top-two gap clears DEEPLAB_TIE_GAP."""
+    from stylemc_torch.convert import params_from_numpy
+    from stylemc_torch.models.deeplab import (
+        INPUT_SIZE, _bilinear_ac, deeplab_apply, deeplab_stages,
+        default_segmenter, init_deeplab_params, preprocess,
+        save_deeplab_checkpoint)
+
+    params = init_deeplab_params(torch.Generator().manual_seed(DEEPLAB_SEED))
+    ckpt = os.path.join(tmp, "deeplab_model.pth")
+    save_deeplab_checkpoint(ckpt, params)
+    saved = os.environ.get("STYLEMC_DEEPLAB")
+    os.environ["STYLEMC_DEEPLAB"] = ckpt
+    try:
+        seg = default_segmenter(resolution=512, device="cuda")
+    finally:
+        if saved is None:
+            del os.environ["STYLEMC_DEEPLAB"]
+        else:
+            os.environ["STYLEMC_DEEPLAB"] = saved
+    img = deeplab_image()
+    logits, launches = count_launches(lambda: seg.logits(img).cpu())
+    record_launches(paths, cfg, "deeplab", launches, 0)
+
+    def f64(tree):
+        return {k: f64(v) if isinstance(v, dict) else v.double()
+                for k, v in tree.items()}
+
+    x = torch.from_numpy(preprocess(img))
+    cpu_params = params_from_numpy(params, "cpu")
+    t0 = time.perf_counter()
+    stages = []
+    with torch.inference_mode():
+        h = x
+        for (name, cpu_fn), (_, card_fn) in zip(
+                deeplab_stages(cpu_params), deeplab_stages(seg.params)):
+            out = cpu_fn(h)
+            stages.append((name, card_fn(h.cuda()).cpu(), out))
+            with tf32_control(torch):
+                stages[-1] += (card_fn(h.cuda()).cpu(),)
+            h = out
+        up = _bilinear_ac(h, INPUT_SIZE, INPUT_SIZE)
+        stages.append(("upsample", _bilinear_ac(
+            h.cuda(), INPUT_SIZE, INPUT_SIZE).cpu(), up))
+        with tf32_control(torch):
+            stages[-1] += (_bilinear_ac(h.cuda(), INPUT_SIZE,
+                                        INPUT_SIZE).cpu(),)
+        logits_c = up
+        cpu_s = time.perf_counter() - t0
+        logits_64 = deeplab_apply(f64(cpu_params), x.double())
+        with tf32_control(torch):
+            logits_t = seg.logits(img).cpu()
+    by_stage = {name: (_rel(card, cpu), _rel(t32, cpu))
+                for name, card, cpu, t32 in stages}
+    worst = max(v for v, _ in by_stage.values())
+    # TF32 moves the matmul/conv stages; the upsample and max pool read
+    # alike under it, so the control is held on the stages' maximum
+    worst_t = max(t for _, t in by_stage.values())
+    top2 = torch.topk(logits_c[0], 2, dim=0).values
+    clear = (top2[0] - top2[1]) > DEEPLAB_TIE_GAP * logits_c.abs().max()
+    agree = logits[0].argmax(0) == logits_c[0].argmax(0)
+    xc = x.cuda()
+    with torch.inference_mode():
+        net_ms = event_ms(lambda: deeplab_apply(seg.params, xc), iters=10,
+                          warmup=2)
+    segment_ms = event_ms(lambda: seg.segment(img), iters=10, warmup=2)
+    emit({"phase": "deeplab", "card": smi,
+          "network": "ResNet-101 (3, 4, 23, 3), width 64, 19 classes, "
+                     "random weights", "input": [1, 3, INPUT_SIZE,
+                                                 INPUT_SIZE],
+          # one call queues ~1.5k launches, more than the launch queue
+          # holds behind a sleep kernel: back-to-back CUDA events instead
+          "segment_event_ms": segment_ms, "network_event_ms": net_ms,
+          "times_are": "CUDA events over 10 back-to-back calls (host cost "
+                       "included; segment adds the host resizes and the "
+                       "class map's copy)",
+          "stage_rel_l2": {k: v for k, (v, _) in by_stage.items()},
+          "stage_rel_l2_tf32_control": {k: t for k, (_, t) in
+                                        by_stage.items()},
+          "stage_gate": DEEPLAB_STAGE_REL_L2,
+          "logit_rel_l2": _rel(logits, logits_c),
+          "logit_rel_l2_tf32_control": _rel(logits_t, logits_c),
+          "logit_rel_l2_to_fp64": {"card_fp32": _rel(logits, logits_64),
+                                   "cpu_fp32": _rel(logits_c, logits_64)},
+          "pixels": int(clear.numel()),
+          "pixels_near_tie": int((~clear).sum()),
+          "pixels_clear_disagreeing": int((clear & ~agree).sum()),
+          "pixels_near_tie_disagreeing": int((~clear & ~agree).sum()),
+          "classes_present": int(logits_c[0].argmax(0).unique().numel()),
+          "cpu_s": cpu_s, "launches": launches})
+    emit({"phase": "deeplab_breakdown", "card": smi,
+          **device_breakdown(torch, lambda: seg.logits(img), top=10)})
+    _gate("deeplab_stage_rel_l2", worst, worst_t, DEEPLAB_STAGE_REL_L2, {})
+    if int((clear & ~agree).sum()):
+        raise AssertionError("the card's class map differs from the CPU's "
+                             "where the top-two gap is clear")
+    return ckpt, seg
+
+
+class _RecordingSegmenter:
+    """Passes the card's segmenter through and keeps the masks it gave,
+    so the CPU side can be fed the same ones."""
+
+    def __init__(self, seg):
+        self.seg, self.masks = seg, []
+
+    def get_bg_mask(self, img_u8):
+        self.masks.append(self.seg.get_bg_mask(img_u8))
+        return self.masks[-1]
+
+    def get_earring_mouth_teeth_masks(self, img_u8, need_earring_mask=True):
+        self.masks.append(self.seg.get_earring_mouth_teeth_masks(
+            img_u8, need_earring_mask))
+        return self.masks[-1]
+
+
+class _ReplayingSegmenter:
+    def __init__(self, masks):
+        self.masks = list(masks)
+
+    def get_bg_mask(self, img_u8):
+        return self.masks.pop(0)
+
+    def get_earring_mouth_teeth_masks(self, img_u8, need_earring_mask=True):
+        return self.masks.pop(0)
+
+
+def phase_mapper_clis(torch, cfg, net, net2, styles, ckpt, seg, tmp, smi,
+                      paths):
+    """On MAPPER_CLI_SEEDS seeds, as subprocesses, each counting its
+    launches from 0: train_latent_mapper (one epoch, --network2 a second
+    seeded FFHQ-1024 generator), generate_fromS --use_mapper 1
+    --use_whitelist 1, generate_fromS --use_mapper 1 --use_blending 1
+    (STYLEMC_DEEPLAB the seeded parser), run_deeplab on the blended JPEGs.
+    Then one item blended on the card and on the CPU, both fed the card's
+    masks: renders within ±1 per uint8, beside the TF32 control."""
+    import shutil
+
+    import numpy as np
+
+    from stylemc_torch.edit import apply_edit_item_with_blending, \
+        mapper_direction
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.models.mapper import load_mapper
+    from stylemc_torch.models.stylegan2.generator import inference_cfg
+
+    s_file = os.path.join(tmp, "mapper_input.npz")
+    np.savez(s_file, s=styles[1:1 + MAPPER_CLI_SEEDS].cpu().numpy())
+    tag = MAPPER_PROMPT.replace(" ", "_")
+    out, blend = (os.path.join(tmp, d) for d in ("mapper_out",
+                                                  "mapper_blend"))
+    env = {"STYLEMC_DEEPLAB": ckpt}
+
+    def run(path, name, synthesis_calls, backward_calls, *args, **kw):
+        return run_cli(paths, cfg, f"cli_{path}", name, synthesis_calls,
+                       backward_calls, *args, **kw)
+
+    steps = MAPPER_CLI_SEEDS // 2
+    common = ["--network", net, "--s_input", s_file, "--text_prompt",
+              MAPPER_PROMPT]
+    # one precompute chunk, then each step's synthesis (by --network2) and
+    # backward pass, all to 512 px
+    train = run("train_latent_mapper", "train_latent_mapper", 1 + steps,
+                steps, *common, "--network2", net2, "--outdir", out,
+                "--allow_random_init", "--n_epochs", "1",
+                upper_blocks=MAPPER_UNTIL_K)
+    mapper_file = os.path.join(out, f"mapper_{tag}.pth")
+    os.makedirs(blend)
+    shutil.copy(mapper_file, blend)
+    # the batched path: originals and edits, one call each
+    white = run("generate_fromS_mapper", "generate_fromS", 2, 0, *common,
+                "--outdir", out, "--use_mapper", "1", "--use_whitelist", "1")
+    # blending: three synthesis calls an item
+    blended = run("generate_fromS_blending", "generate_fromS",
+                  3 * MAPPER_CLI_SEEDS, 0, *common, "--outdir", blend,
+                  "--use_mapper", "1", "--use_blending", "1", env=env)
+    parse = run("run_deeplab", "run_deeplab", 0, 0, "--dataset_root", blend,
+                "--ckpt", ckpt)
+
+    def jpegs(d):
+        names = [f"{tag}_{i:03d}.jpeg" for i in range(MAPPER_CLI_SEEDS)]
+        imgs = []
+        for name in names:
+            with open(os.path.join(d, name), "rb") as fh:
+                imgs.append(_decode(fh.read()))
+        return imgs
+
+    res = cfg.img_resolution
+    white_imgs, blend_imgs = jpegs(out), jpegs(blend)
+    parsings = sorted(os.listdir(os.path.join(blend, "parsings")))
+    mapper = load_mapper(mapper_file, device="cuda")
+    checks = {
+        "mapper_file": len(torch.load(mapper_file, weights_only=True)) == 20,
+        "jpeg_shapes": all(a.shape == (res, 2 * res, 3)
+                           for a in white_imgs + blend_imgs),
+        "left_ne_right": all(np.abs(a[:, :res].astype(int)
+                                    - a[:, res:].astype(int)).max() > 0
+                             for a in white_imgs + blend_imgs),
+        "blending_differs": any(np.abs(a.astype(int) - b.astype(int)).max()
+                                > 0 for a, b in zip(white_imgs,
+                                                    blend_imgs)),
+        "parsings": parsings == [f"{tag}_{i:03d}.png"
+                                 for i in range(MAPPER_CLI_SEEDS)],
+        "two_generators": "using 2 generators" in train[1]}
+
+    # one item blended on both sides from the card's masks
+    _, gp = load_generator(net, device="cuda")
+    _, gp_cpu = load_generator(net, device="cpu")
+    icfg = inference_cfg(cfg)
+    item = styles[1]
+    d = mapper_direction(mapper, item)
+    rec = _RecordingSegmenter(seg)
+    card, launches = count_launches(lambda: apply_edit_item_with_blending(
+        gp, icfg, item, d, 2.0, rec, text_prompt=MAPPER_PROMPT))
+    record_launches(paths, cfg, "mapper_blend_parity", launches, 3)
+    with tf32_control(torch):
+        card_t = apply_edit_item_with_blending(
+            gp, icfg, item, d, 2.0, _ReplayingSegmenter(rec.masks),
+            text_prompt=MAPPER_PROMPT)
+    t0 = time.perf_counter()
+    cpu, cpu_launches = count_launches(lambda: apply_edit_item_with_blending(
+        gp_cpu, icfg, item.cpu(), d.cpu(), 2.0,
+        _ReplayingSegmenter(rec.masks), text_prompt=MAPPER_PROMPT))
+    cpu_s = time.perf_counter() - t0
+
+    def u8_diff(a, b):
+        return max(int(np.abs(x.astype(int) - y.astype(int)).max())
+                   for x, y in zip(a, b))
+
+    def off_share(a, b):
+        return float(np.mean([np.mean(x != y) for x, y in zip(a, b)]))
+
+    diff, diff_t = u8_diff(card, cpu), u8_diff(card_t, cpu)
+    off, off_t = off_share(card, cpu), off_share(card_t, cpu)
+    saturated = float(np.mean([np.mean((a == 0) | (a == 255))
+                               for a in card]))
+    emit({"phase": "mapper_clis", "card": smi,
+          "seconds": {"train_latent_mapper": train[0],
+                      "generate_fromS_mapper": white[0],
+                      "generate_fromS_blending": blended[0],
+                      "run_deeplab": parse[0]},
+          "launches": {k: paths[f"cli_{k}"]["launches"] for k in
+                       ("train_latent_mapper", "generate_fromS_mapper",
+                        "generate_fromS_blending", "run_deeplab")},
+          "blend_parity": {"max_abs_u8_diff": diff,
+                           "max_abs_u8_diff_tf32_control": diff_t,
+                           "gate": 1, "off_by_one_share": off,
+                           "off_by_one_share_tf32_control": off_t,
+                           "off_by_one_share_gate": BLEND_OFF_SHARE,
+                           "saturated_share": saturated,
+                           "cpu_s": cpu_s,
+                           "mask_pixels": {
+                               "bg": int(np.sum(rec.masks[0])),
+                               "earring_mouth_teeth": [
+                                   None if m is None else int(np.sum(m))
+                                   for m in rec.masks[1]]},
+                           "launches": launches,
+                           "cpu_launches": cpu_launches},
+          "train_tail": train[1].strip().splitlines()[-3:],
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"mapper CLI checks failed: {checks}")
+    if any(cpu_launches.values()):
+        raise AssertionError("the CPU blending launched a CUDA kernel")
+    # ±1 per uint8 cannot tell TF32 here (the ToRGB-scaled renders sit
+    # away from the clip, and TF32's error stays under one step): the share
+    # of values off by one is gated beside it, and TF32 must fail that
+    if diff > 1:
+        raise AssertionError(f"blended renders differ by {diff} > 1")
+    _gate("blend_off_by_one_share", off, off_t, BLEND_OFF_SHARE, {})
+
+
+def phase_mapper_serve(torch, net, direction, tmp, smi, paths):
+    """BatchEditor.from_files(ffhq256, mapper=) with a seeded mapper written
+    by torch.save: an HTTP /edit answer; images/s at batch 16 and 64 beside
+    the same editor with a plain direction; the mapper's directions on the
+    card against the CPU's (max |err| 1e-5) and two seeds' renders (±1),
+    each beside the TF32 control."""
+    import numpy as np
+
+    from stylemc_torch.cli.serve import build_server
+    from stylemc_torch.edit import mapper_directions_batched
+    from stylemc_torch.models.mapper import save_mapper
+    from stylemc_torch.serve import BatchEditor
+
+    mapper_file = os.path.join(tmp, "mapper_serve.pth")
+    save_mapper(seeded_mapper(torch, MAPPER_SEED, "cpu"), mapper_file)
+    editor = BatchEditor.from_files(net, mapper=mapper_file,
+                                    directions={"d0": direction},
+                                    max_batch=64, device="cuda")
+    editor.warmup()
+    res = editor.cfg.img_resolution
+    chunk = min(editor.pipeline_chunk or 64, 64)
+    server, service = build_server(editor, host="127.0.0.1", port=0,
+                                   coalesce_ms=3.0, max_batch=64)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        (status, ctype, body), launches = count_launches(lambda: _get(
+            f"http://127.0.0.1:{server.server_address[1]}"
+            "/edit?seeds=1-4&pairs=1"))
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise AssertionError("HTTP server thread did not stop")
+    img = _decode(body)
+    record_launches(paths, editor.cfg, "mapper_http", launches,
+                    2 * -(-4 // chunk))
+
+    styles = editor.styles_from_seeds(list(range(64)))
+    rates = {}
+
+    def throughput():
+        for b in (16, 64):
+            for mode, name in (("mapper", None), ("direction", "d0")):
+                editor.edit_styles(styles[:b], direction_name=name)
+                times = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    editor.edit_styles(styles[:b], change_power=2.0,
+                                       direction_name=name)
+                    times.append(time.perf_counter() - t0)
+                rates[f"{mode}_{b}"] = {
+                    "images_per_s": [b / t for t in times],
+                    "median_images_per_s": b / statistics.median(times)}
+
+    _, tlaunches = count_launches(throughput)
+    record_launches(paths, editor.cfg, "mapper_throughput", tlaunches,
+                    2 * 4 * (-(-16 // chunk) + -(-64 // chunk)))
+
+    cpu = BatchEditor.from_files(net, mapper=mapper_file, max_batch=2,
+                                 device="cpu")
+    s2 = editor.styles_from_seeds([1, 2])
+    d = mapper_directions_batched(editor.mapper_params, s2).cpu()
+    with tf32_control(torch):
+        d_t = mapper_directions_batched(editor.mapper_params, s2).cpu()
+        got_t = editor.edit_seeds([1, 2], change_power=2.0, pairs=True)
+    d_c = mapper_directions_batched(cpu.mapper_params, s2.cpu())
+    got, rlaunches = count_launches(
+        lambda: editor.edit_seeds([1, 2], change_power=2.0, pairs=True))
+    record_launches(paths, editor.cfg, "mapper_parity_render", rlaunches, 2)
+    want = cpu.edit_seeds([1, 2], change_power=2.0, pairs=True)
+    diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+    diff_t = int(np.abs(got_t.astype(int) - want.astype(int)).max())
+    checks = {"status_200": status == 200, "jpeg": ctype == "image/jpeg",
+              "pairs_shape": img.shape == (4 * res, 2 * res, 3),
+              "left_ne_right": bool(np.abs(img[:, :res].astype(int)
+                                           - img[:, res:].astype(int)).max()
+                                    > 0)}
+    emit({"phase": "mapper_serve", "card": smi, "checks": checks,
+          "launches": launches, "throughput": rates,
+          "throughput_launches": tlaunches,
+          "direction_max_abs_err": float((d - d_c).abs().max()),
+          "direction_max_abs_err_tf32_control": float(
+              (d_t - d_c).abs().max()),
+          "direction_gate": MAPPER_DIRECTION_ATOL,
+          "render_max_abs_u8_diff": diff,
+          "render_max_abs_u8_diff_tf32_control": diff_t, "render_gate": 1})
+    if not all(checks.values()):
+        raise AssertionError(f"mapper serving checks failed: {checks}")
+    _gate("direction_max_abs_err", float((d - d_c).abs().max()),
+          float((d_t - d_c).abs().max()), MAPPER_DIRECTION_ATOL, {})
+    _gate("render_max_abs_u8_diff", diff, diff_t, 1, {})
+
+
 MODCONV_REPLACES = {
     "modconv_fwd": ("modconv_pallas.py:88", "_fwd_kernel/_fwd_call"),
     "modconv_bwd_data": ("modconv_pallas.py:170",
@@ -2946,12 +3689,23 @@ def main() -> int:
         phase_landmarks_metric(torch, net, models, styles, direction,
                                landmarker, landmark_files, paths)
         phase_sweep_clis(models[0], net, styles, tmp, landmark_files, paths)
-        del editor, models, landmarker, styles
+        # the latent mapper and the DeepLab face parser, on the train
+        # phase's perception models
+        cfg1024, net1024 = make_ffhq1024(torch, tmp, MAPPER_NET_SEEDS[0])
+        _, net1024b = make_ffhq1024(torch, tmp, MAPPER_NET_SEEDS[1])
+        _, mapper_styles = phase_mapper(torch, models, net1024, smi, paths)
+        phase_mapper_parity(torch, models, net1024, smi, paths)
+        ckpt, seg = phase_deeplab(torch, cfg1024, tmp, smi, paths)
+        phase_mapper_clis(torch, cfg1024, net1024, net1024b, mapper_styles,
+                          ckpt, seg, tmp, smi, paths)
+        del editor, models, landmarker, styles, mapper_styles, seg
         torch.cuda.empty_cache()
         editor = phase_serve(torch, net, direction, smi, paths)
         phase_parity(editor, net, direction, paths)
         phase_clis(editor, net, direction, tmp, paths)
         del editor
+        torch.cuda.empty_cache()
+        phase_mapper_serve(torch, net, direction, tmp, smi, paths)
         torch.cuda.empty_cache()
         phase_e4e(torch, tmp, smi, paths, landmark_files)
 
@@ -3004,6 +3758,14 @@ def main() -> int:
             kernels[-1].update({f"ffhq1024_b16_{k}": sum(r[k] for r in e4e)
                                 for k in ("kernel_ms", "plain_ms",
                                           "bound_ms", "library_ms")})
+        # one mapper step (batch 2, 512 px): its synthesis call for B1, its
+        # backward pass for B2
+        step = MAPPER_UP_SHAPES if name == "upsample2x" else \
+            MAPPER_DOWN_SHAPES
+        step_rows = [r for r in rows if tuple(r["shape"]) in step]
+        kernels[-1].update({f"mapper_b2_{k}": sum(r[k] for r in step_rows)
+                            for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                      "library_ms")})
     kernels += modconv_entries(modconv_rows, paths, smi, mma_rate)
     print(smi, flush=True)
     emit({"kernels": kernels})

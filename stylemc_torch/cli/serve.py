@@ -20,6 +20,8 @@ Usage:
       --direction runs/m2f/direction_x.npz --port 8080
   python -m stylemc_torch.cli.serve --network decoder.pt \
       --direction runs/m2f/direction_x.npz --e4e_ckpt e4e_ffhq_encode.pt
+  python -m stylemc_torch.cli.serve --network ffhq.npz \
+      --mapper out/mapper_a_smiling_face.pth
 """
 
 from __future__ import annotations
@@ -225,6 +227,9 @@ def build_server(editor, host: str = "127.0.0.1", port: int = 8080,
 @click.option("--directions", type=str, multiple=True, metavar="NAME=PATH",
               help="named direction, repeatable; select per request via "
                    "/edit?direction=NAME")
+@click.option("--mapper", type=str, default=None,
+              help="mapper_{prompt}.pth: per-item directions from a latent "
+                   "mapper when a request names no direction")
 @click.option("--e4e_ckpt", type=str, default=None,
               help="e4e checkpoint: enables POST /edit_image (photo → "
                    "invert → edit → render in one request)")
@@ -240,8 +245,8 @@ def build_server(editor, host: str = "127.0.0.1", port: int = 8080,
                    "within this window into one batched dispatch; 0 "
                    "disables (serial lock)")
 @click.option("--device", default="cuda", show_default=True)
-def main(network, direction, directions, e4e_ckpt, host, port, max_batch,
-         precision, warmup, coalesce_ms, device):
+def main(network, direction, directions, mapper, e4e_ckpt, host, port,
+         max_batch, precision, warmup, coalesce_ms, device):
     from ..serve import BatchEditor
 
     zoo = {}
@@ -251,7 +256,7 @@ def main(network, direction, directions, e4e_ckpt, host, port, max_batch,
             raise click.BadParameter(f"expected NAME=PATH, got {entry!r}")
         zoo[name] = path
     editor = BatchEditor.from_files(network, direction=direction,
-                                    directions=zoo or None,
+                                    mapper=mapper, directions=zoo or None,
                                     e4e_ckpt=e4e_ckpt, max_batch=max_batch,
                                     precision=precision, device=device)
     if warmup:

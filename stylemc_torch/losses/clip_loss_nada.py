@@ -2,7 +2,7 @@
 `stylemc_tpu/losses/clip_loss_nada.py:27-116`): template-averaged text
 directions over the 27 imagenet templates, NADA preprocessing, and the
 directional loss. The global, angle, texture and patch losses of the JAX
-module are not ported yet (ROADMAP A12)."""
+module are not ported yet (ROADMAP A12b)."""
 
 from __future__ import annotations
 

@@ -147,7 +147,7 @@ def encode_image(params, cfg: CLIPConfig, image):
     if cfg.is_vit:
         return encode_image_vit(params, cfg, image)
     raise NotImplementedError(
-        "the RN50 image tower is not ported yet (ROADMAP A12); use "
+        "the RN50 image tower is not ported yet (ROADMAP A12b); use "
         "ViT-B/32 or ViT-B/16")
 
 
@@ -188,7 +188,7 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig,
     via `params_from_torch_state`."""
     if not cfg.is_vit:
         raise NotImplementedError(
-            "the RN50 image tower is not ported yet (ROADMAP A12)")
+            "the RN50 image tower is not ported yet (ROADMAP A12b)")
     dev = resolve_device(device)
 
     def randn(shape, std):
@@ -254,7 +254,7 @@ def params_from_torch_state(state: Dict[str, np.ndarray], cfg: CLIPConfig
     numpy arrays (`convert.params_from_numpy` puts it on a device)."""
     if not cfg.is_vit:
         raise NotImplementedError(
-            "the RN50 image tower is not ported yet (ROADMAP A12)")
+            "the RN50 image tower is not ported yet (ROADMAP A12b)")
     t = state
 
     def block(prefix):

@@ -10,6 +10,11 @@ Usage:
     imgs_u8 = editor.edit_seeds([1, 2, 3], change_power=2.0)
     pairs_u8 = editor.edit_styles(styles, change_power=1.5, pairs=True)
 
+A latent mapper in place of a direction (per-item directions, computed
+for each chunk from its own styles):
+    editor = BatchEditor.from_files(network="ffhq.npz",
+                                    mapper="out/mapper_a_smiling_face.pth")
+
 Real photos (an e4e inverter attached):
     editor = BatchEditor.from_files(network="decoder.pt", direction=...,
                                     e4e_ckpt="e4e_ffhq_encode.pt")
@@ -30,7 +35,8 @@ import torch
 
 from .convert import params_from_numpy
 from .device import DeviceLike, disable_tf32, resolve_device
-from .edit import N_STYLE_CHANNELS, STYLE_DIM, to_u8_nhwc
+from .edit import (N_STYLE_CHANNELS, STYLE_DIM, mapper_directions_batched,
+                   to_u8_nhwc)
 from .models.stylegan2.generator import (GeneratorConfig, inference_cfg,
                                          mapping, synthesis, w_to_s)
 
@@ -62,6 +68,7 @@ class BatchEditor:
 
     def __init__(self, gen_cfg: GeneratorConfig, gen_params,
                  direction: Optional[np.ndarray] = None,
+                 mapper_params=None, mapper_neg_slope: float = 0.01,
                  max_batch: int = 64, truncation_psi: float = 0.7,
                  noise_mode: str = "const", precision: str = "fp32",
                  pipeline_chunk: int = 16, device: DeviceLike = None):
@@ -75,6 +82,15 @@ class BatchEditor:
             direction)
         # named directions, selected per request
         self.directions: Dict[str, torch.Tensor] = {}
+        # a Mapper or its reference state dict: with no direction name, each
+        # chunk's directions come from its own styles
+        self.mapper_params = None
+        if mapper_params is not None:
+            from .models.mapper import as_mapper
+
+            self.mapper_params = as_mapper(mapper_params, self.device)
+            self.mapper_params.requires_grad_(False)
+        self.mapper_neg_slope = mapper_neg_slope
         self.truncation_psi = truncation_psi
         self.noise_mode = noise_mode
         self._inverter = None  # set by attach_inverter
@@ -169,14 +185,20 @@ class BatchEditor:
                                 change_power=change_power, pairs=pairs,
                                 direction_name=direction_name)
 
-    def _direction(self, name: Optional[str] = None) -> torch.Tensor:
+    def _directions_for(self, styles: torch.Tensor,
+                        name: Optional[str] = None) -> torch.Tensor:
+        """The named direction, else the mapper's directions of `styles`
+        (no whitelist), else the constructor's direction."""
         if name is not None:
             if name not in self.directions:
                 raise KeyError(f"unknown direction {name!r}; loaded: "
                                f"{sorted(self.directions)}")
             return self.directions[name]
+        if self.mapper_params is not None:
+            return mapper_directions_batched(self.mapper_params, styles,
+                                             neg_slope=self.mapper_neg_slope)
         if self.direction is None:
-            raise ValueError("no direction loaded")
+            raise ValueError("no direction or mapper loaded")
         return self.direction
 
     def _start_copy(self, a: torch.Tensor):
@@ -213,10 +235,9 @@ class BatchEditor:
                     direction_name: Optional[str] = None) -> np.ndarray:
         """styles [N, 26, 512] → uint8 [N, H, W, 3]; pairs=True returns
         [orig | edited] side by side; direction_name selects a named
-        direction (default: the constructor's)."""
+        direction (default: the mapper's, else the constructor's)."""
         styles = torch.as_tensor(styles, dtype=torch.float32,
                                  device=self.device)
-        d = self._direction(direction_name)
         step = min(self.pipeline_chunk or self.buckets[-1], self.buckets[-1])
         pending: List[Tuple[int, torch.Tensor, Optional[torch.cuda.Event]]] = []
         outs: List[np.ndarray] = []
@@ -230,6 +251,7 @@ class BatchEditor:
             chunk = styles[lo:lo + step]
             n = chunk.shape[0]
             padded = self._pad(chunk, self._bucket(n))
+            d = self._directions_for(padded, direction_name)
             img = self._render_u8(padded + d * change_power)
             if pairs:
                 img = torch.cat([self._render_u8(padded), img], dim=2)
@@ -268,19 +290,26 @@ class BatchEditor:
 
     @classmethod
     def from_files(cls, network: str, direction: Optional[str] = None,
+                   mapper: Optional[str] = None,
                    directions: Optional[Dict[str, str]] = None,
                    e4e_ckpt: Optional[str] = None,
                    **kwargs) -> "BatchEditor":
         """network: NVIDIA .pkl, native .npz or rosinality .pt; direction:
-        npz with key 's'; directions: {name: path} registers named
-        directions; e4e_ckpt attaches a real-image inverter (edit_images,
+        npz with key 's'; mapper: a mapper_{prompt}.pth state dict;
+        directions: {name: path} registers named directions; e4e_ckpt attaches a real-image inverter (edit_images,
         POST /edit_image)."""
         from .io import load_generator
 
         device = resolve_device(kwargs.pop("device", None))
         cfg, params = load_generator(network, device=device)
         d = np.load(direction)["s"] if direction else None
-        editor = cls(cfg, params, direction=d, device=device, **kwargs)
+        mp = None
+        if mapper:
+            from .models.mapper import load_mapper
+
+            mp = load_mapper(mapper, device=device)
+        editor = cls(cfg, params, direction=d, mapper_params=mp,
+                     device=device, **kwargs)
         for name, path in (directions or {}).items():
             editor.add_direction(name, np.load(path)["s"])
         if e4e_ckpt:

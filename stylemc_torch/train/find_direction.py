@@ -266,12 +266,16 @@ def make_loss_fn(gen_params, gen_cfg: GeneratorConfig,
                  bundles: List[CLIPBundle], arcface_params,
                  fdc: FindDirectionConfig,
                  edit_fn: Optional[Callable] = None,
+                 edit_gen: Optional[Tuple] = None,
                  mobilenet_params=None):
     """loss(trainable, styles, id_feats_orig, clip_feats_orig,
     landmarks_refs=None, text_dirs=None) → (loss, aux).
 
     edit_fn(trainable, styles) → styles2; by default the global-direction
-    edit (Δs rows added to the trainable rows). A trainable of [P, 1, 8,
+    edit (Δs rows added to the trainable rows); the mapper trainer passes
+    its own. edit_gen: an optional second generator's (params, cfg) that
+    renders the edited image (the two-generator domain-transfer mode); the
+    originals' features still come from the first. A trainable of [P, 1, 8,
     512] edits P copies of the batch: styles2 [P, B, 26, 512] render in one
     synthesis call, and loss and aux hold one value per prompt. text_dirs
     (one anchor dict per bundle, `DirectionEngine._text_dirs`) replaces the
@@ -282,6 +286,8 @@ def make_loss_fn(gen_params, gen_cfg: GeneratorConfig,
     until_k = until_k_for_resolution(fdc.resolution)
     dtype = _perception_dtype(fdc)
     rows = torch.tensor(TRAINABLE)
+    e_params, e_cfg = edit_gen if edit_gen is not None else (gen_params,
+                                                             gen_cfg)
 
     if edit_fn is None:
         def edit_fn(delta_s, styles):
@@ -291,7 +297,7 @@ def make_loss_fn(gen_params, gen_cfg: GeneratorConfig,
                 landmarks_refs=None, text_dirs=None):
         styles2 = edit_fn(trainable, styles)
         lead = styles2.shape[:-2]
-        img = synthesis(gen_params, gen_cfg,
+        img = synthesis(e_params, e_cfg,
                         styles2.reshape(-1, *styles2.shape[-2:]),
                         until_k=until_k, noise_mode=fdc.noise_mode)
 
@@ -461,12 +467,15 @@ def _sgd_step(loss_fn, bank, delta_s, idx, lr, text_dirs=None):
 
 
 def _sgd_loop(delta_s, step, n_items: int, fdc: FindDirectionConfig,
-              after_step: Optional[Callable] = None):
+              after_step: Optional[Callable] = None,
+              device: Optional[torch.device] = None):
     """fdc.n_epochs epochs of ceil(n_items / batch) steps, each on a batch
     of one `RandomState(fdc.seed)` draw at the scheduled learning rate.
     after_step(it, total, lr, idx, Δs, loss, aux, grad_norm) runs after
-    each step. → (Δs, loss history [steps, ...] numpy, info)."""
-    dev = delta_s.device
+    each step. delta_s is the trained state, a tensor or (the mapper
+    trainer's) a module on `device`. → (Δs, loss history [steps, ...]
+    numpy, info)."""
+    dev = device if device is not None else delta_s.device
     num_batches = math.ceil(n_items / fdc.batch_size)
     total = num_batches * fdc.n_epochs
     rng = np.random.RandomState(fdc.seed)

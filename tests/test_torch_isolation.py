@@ -59,7 +59,8 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     # 49 modules before the e4e slice, which adds 9; the landmarks stack
     # and align_faces add 12
-    assert len(_modules()) >= 70
+    # the mapper and DeepLab slice adds 5
+    assert len(_modules()) >= 75
     for m in ("stylemc_torch.ops.kernels.modconv",
               "stylemc_torch.bench.fused_layer_ab",
               "stylemc_torch.bench.timing",
@@ -80,7 +81,11 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
               "stylemc_torch.models.mtcnn.detect", "stylemc_torch.native",
               "stylemc_torch.native.build", "stylemc_torch.cv",
               "stylemc_torch.cv.landmarks", "stylemc_torch.cv.align",
-              "stylemc_torch.cli.align_faces"):
+              "stylemc_torch.cli.align_faces",
+              "stylemc_torch.models.mapper", "stylemc_torch.models.deeplab",
+              "stylemc_torch.train.latent_mapper",
+              "stylemc_torch.cli.train_latent_mapper",
+              "stylemc_torch.cli.run_deeplab"):
         assert m in _modules()
 
 
@@ -111,6 +116,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from stylemc_torch.models.mobilenet import init_mobilenet_gdconv_params
     from stylemc_torch.models.mtcnn.detect import MTCNN
     from stylemc_torch.models.mtcnn.nets import init_net_params
+    from stylemc_torch.models.deeplab import (
+        Segmenter, default_segmenter, init_deeplab_params,
+        save_deeplab_checkpoint)
+    from stylemc_torch.models.mapper import init_mapper_params
+    from stylemc_torch.cli.run_deeplab import main as run_deeplab_main
+    from stylemc_torch.cli.train_latent_mapper import (
+        main as train_latent_mapper_main)
     from stylemc_torch.serve import BatchEditor
     from stylemc_torch.utils.model_zoo import load_arcface, load_clip_models
 
@@ -120,6 +132,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                                    device="cpu")
     net = str(tmp_path / "net.npz")
     save_native(net, cfg, params)
+    parser = init_deeplab_params(torch.Generator().manual_seed(0),
+                                 layers=(1, 1, 1, 1), width=8)
+    ckpt = str(tmp_path / "deeplab_model.pth")
+    save_deeplab_checkpoint(ckpt, parser)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: BatchEditor(cfg, params),
                  lambda: BatchEditor.from_files(net),
@@ -135,23 +151,32 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: init_net_params(torch.Generator(), "pnet"),
                  lambda: init_mobilenet_gdconv_params(torch.Generator()),
                  lambda: MTCNN.from_weights_dir(str(tmp_path)),
-                 lambda: default_landmarker(str(tmp_path), net)):
+                 lambda: default_landmarker(str(tmp_path), net),
+                 lambda: init_mapper_params(torch.Generator()),
+                 lambda: BatchEditor.from_files(net, mapper="m.pth"),
+                 lambda: Segmenter(parser),
+                 lambda: default_segmenter(ckpt)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    # so do the e4e inversion and alignment CLIs
-    for cli, args in ((infer_e4e_main, ["--ckpt", "e4e.pt"]),
-                      (align_faces_main, ["--out_dir", str(tmp_path / "a")])):
-        r = CliRunner().invoke(cli, ["--images_dir", str(tmp_path)] + args)
+    # so do the e4e inversion, alignment and face-parsing CLIs
+    for cli, args in ((infer_e4e_main, ["--images_dir", str(tmp_path),
+                                        "--ckpt", "e4e.pt"]),
+                      (align_faces_main, ["--images_dir", str(tmp_path),
+                                          "--out_dir", str(tmp_path / "a")]),
+                      (run_deeplab_main, ["--dataset_root", str(tmp_path),
+                                          "--ckpt", ckpt])):
+        r = CliRunner().invoke(cli, args)
         assert isinstance(r.exception, RuntimeError), r.output
         assert "device='cpu'" in str(r.exception)
-    # the training CLI defaults to cuda and raises before loading anything
+    # the training CLIs default to cuda and raise before loading anything
     s_file = str(tmp_path / "s.npz")
     np.savez(s_file, s=np.zeros((4, 26, 512), np.float32))
-    r = CliRunner().invoke(find_direction_main, [
-        "--network", net, "--s_input", s_file, "--outdir",
-        str(tmp_path / "out"), "--allow_random_init"])
-    assert isinstance(r.exception, RuntimeError), r.output
-    assert "device='cpu'" in str(r.exception)
+    for cli in (find_direction_main, train_latent_mapper_main):
+        r = CliRunner().invoke(cli, [
+            "--network", net, "--s_input", s_file, "--outdir",
+            str(tmp_path / "out"), "--allow_random_init"])
+        assert isinstance(r.exception, RuntimeError), r.output
+        assert "device='cpu'" in str(r.exception)
     # explicit CPU still works
     assert BatchEditor(cfg, params, device="cpu").device.type == "cpu"
 
