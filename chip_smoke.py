@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive stylemc_torch's serving, training (single prompt, prompt sweeps,
-the landmarks loss, the latent mapper), real-image editing and DeepLab
-feature-blending paths and its fused-layer A/B on one CUDA card and check
-them.
+the landmarks loss, the latent mapper), real-image editing, DeepLab
+feature-blending, GAN evaluation (calc_metrics, LEC), NADA-loss and warp
+paths and its fused-layer A/B on one CUDA card and check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -21,7 +21,9 @@ script exits non-zero:
           version at every ToRGB chain shape of FFHQ-256 at batch 16, the
           two larger planes of FFHQ-1024's chain at batch 16 ([16,3,256²],
           [16,3,512²]; the e4e decoder's), the 1024 px plane, two odd
-          shapes and a mapper step's chain [2,3,h,h], h = 4..256; B2
+          shapes, a mapper step's chain [2,3,h,h], h = 4..256, and the
+          batch-4 chains of LEC's FFHQ-1024 decodes [4,3,h,h], h = 4..512,
+          whose first six are the NADA step's FFHQ-256 chain; B2
           (downsample2x) at the training step's backward shapes
           [4,3,2h,2h], the 1024 px plane, two odd shapes and a mapper
           step's backward shapes [2,3,2h,2h] up to 512²; both on an input 4
@@ -176,9 +178,32 @@ script exits non-zero:
           mapper: an HTTP /edit answer, images/s at batch 16 and 64 beside
           a plain direction, the mapper's directions on the card against
           the CPU's (max |err| 1e-5), two seeds' renders within ±1
-  Every card-against-CPU gate of the mapper and DeepLab phases is a fixed
-  constant, read beside a TF32 control of the card's side (TF32 in cuDNN
-  and cuBLAS) that must fail it.
+  nada    after train_parity: nada_loss (direction, global, manifold and
+          the RN50 texture term) on 4 full-width FFHQ-256 renders (seeds
+          1-4) and their edit by a seeded Δs, with the train phase's seeded
+          ViT-B/32 and a seeded full-width RN50, forward and backward to Δs
+          on the card and on the CPU: loss rtol 1e-6, Δs gradient relative
+          L2 1e-3; the step's time and RN50's encode_image at batch 4
+  warp    after clis: warp_images over 4 of the [orig|edited] pairs that
+          generate_fromS wrote, with the landmark files, as a subprocess:
+          one strip per pair, both halves and the warped original
+  metrics calc_metrics (fid50k_full, kid50k_full, pr50k3_full, is50k,
+          ppl2_wend) as a subprocess on the FFHQ-256 generator with seeded
+          Inception v3 and LPIPS-VGG16 (--allow_random_init), 512 generated
+          images against a directory of 512 PNGs the generator rendered at
+          other latents, batch 16; launches counted per metric; every result
+          finite and in range (FID >= 0, precision and recall in [0, 1],
+          IS >= 1); card against CPU on 16 of the images: Inception's
+          features in both variants (relative L2 1e-4) and LPIPS-VGG
+          distances (rtol 1e-5); the metric loop's images/s, the generator's
+          and Inception's alone (batch 16 and 64), PPL pairs/s, one batch's
+          device split and idle share, peak memory
+  lec     after the e4e phases: calculate_lec on the seeded e4e_ffhq_encode
+          over its 8 photos (2 batches of 4), a seeded W+ direction added
+          as the edit and subtracted as its inverse: finite
+  Every card-against-CPU gate of the mapper, DeepLab, metrics and NADA
+  phases is a fixed constant, read beside a TF32 control of the card's side
+  (TF32 in cuDNN and cuBLAS) that must fail it.
 
 Each path that renders or trains (the HTTP requests, the throughput calls,
 the parity render on the card, the precompute, the training steps, the
@@ -188,8 +213,10 @@ must show B1 launched once per upper block of each synthesis call (6 at
 FFHQ-256, 8 at FFHQ-1024, 7 for a mapper step's 512 px render of
 FFHQ-1024), B2 once per upper block of each backward pass (6, or 7 for a
 mapper step), and B3/B4/B5 never (the generator runs the unfused layer, as
-the JAX generator does); the e4e encoder, the mapper network and DeepLab
-launch none of them.
+the JAX generator does); the e4e encoder, the mapper network, DeepLab,
+Inception, LPIPS, CLIP and the landmark nets launch none of them. Each
+metric's renders are counted apart (PPL renders both ends of each pair:
+two synthesis calls a batch), and so are LEC's decodes (FFHQ-1024).
 
 Then the card's nvidia-smi line, a {"kernels": [...]} line and, last,
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -241,6 +268,11 @@ DOWN_SHAPES = TRAIN_DOWN_SHAPES + [(1, 3, 1024, 1024), (2, 5, 6, 10),
 MAPPER_UP_SHAPES = [(2, 3, h, h) for h in (4, 8, 16, 32, 64, 128, 256)]
 MAPPER_DOWN_SHAPES = [(2, 3, 2 * h, 2 * h) for h in (4, 8, 16, 32, 64, 128,
                                                      256)]
+# B1's inputs in one LEC decode (FFHQ-1024, batch 4) and, the first six,
+# in the NADA step's synthesis call (FFHQ-256, batch 4); B2's in the NADA
+# step's backward are TRAIN_DOWN_SHAPES
+LEC_UP_SHAPES = [(4, 3, h, h) for h in (4, 8, 16, 32, 64, 128, 256, 512)]
+NADA_UP_SHAPES = LEC_UP_SHAPES[:6]
 # B1 and B2 on an input that starts 4 bytes past an aligned allocation (the
 # wrapper takes the 4-byte path for it)
 OFFSET_SHAPE = (2, 5, 6, 10)
@@ -490,7 +522,8 @@ def phase_kernel(torch):
     return floor_ms, {
         "upsample2x": _kernel_rows(
             torch, "upsample2x",
-            CHAIN_SHAPES + E4E_CHAIN_EXTRA + EXTRA_SHAPES + MAPPER_UP_SHAPES,
+            CHAIN_SHAPES + E4E_CHAIN_EXTRA + EXTRA_SHAPES + MAPPER_UP_SHAPES
+            + LEC_UP_SHAPES,
             upsample2d_kernel, launch_upsample, upsample2d_plain, up_taps,
             upsample_bound, library_upsample, up_taps,
             lambda s: upsample_plan(s[0] * s[1], s[2], s[3]), floor_ms),
@@ -1849,6 +1882,7 @@ def phase_e4e(torch, tmp, smi, paths, landmark_files):
     editor = phase_e4e_serve(torch, ckpt, decoder, photos, direction,
                              cli_styles, smi, paths)
     phase_e4e_parity(torch, editor, ckpt, decoder, photos, direction, paths)
+    return ckpt, photos
 
 
 def perception_models(torch):
@@ -3566,6 +3600,412 @@ def phase_mapper_serve(torch, net, direction, tmp, smi, paths):
     _gate("render_max_abs_u8_diff", diff, diff_t, 1, {})
 
 
+# ------------------------------- GAN evaluation, LEC, NADA and the warp tools
+
+METRICS = "fid50k_full,kid50k_full,pr50k3_full,is50k,ppl2_wend"
+METRICS_NUM_GEN = 512
+METRICS_BATCH = 16
+METRICS_DATA_SEED = 1000   # the stand-in dataset's z: seeds 1000..1511
+METRICS_DATA = 512
+METRICS_PARITY_IMAGES = 16
+# card against CPU, fixed, each beside a TF32 control that must fail it
+INCEPTION_REL_L2 = 1e-4
+LPIPS_RTOL = 1e-5
+NADA_LOSS_RTOL = 1e-6
+NADA_GRAD_REL_L2 = 1e-3
+NADA_PROMPTS = ("face", "smiling face")
+RN50_SEED = 20
+LEC_DIRECTION_SCALE = 0.5
+WARP_PAIRS = 4
+
+METRICS_RUNNER = """\
+import json, runpy, sys
+import stylemc_torch.metrics as metrics
+from chip_smoke import launch_counters
+counters = launch_counters()
+per_metric = {}
+calc = metrics.calc_metric
+
+
+def counted(name, **kw):
+    for c in counters.values():
+        c.launches = 0
+    out = calc(name, **kw)
+    per_metric[name] = {k: c.launches for k, c in counters.items()}
+    return out
+
+
+metrics.calc_metric = counted
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    if e.code not in (None, 0):
+        raise
+print(json.dumps(per_metric))
+"""
+
+
+def metric_detectors(torch, device):
+    """The seeded Inception v3 and LPIPS-VGG16 of calc_metrics
+    --allow_random_init, on `device`."""
+    from stylemc_torch.cli.calc_metrics import INCEPTION_SEED, LPIPS_SEED
+    from stylemc_torch.losses.lpips import init_lpips_params
+    from stylemc_torch.metrics.inception import init_inception_params
+
+    return (init_inception_params(
+        torch.Generator().manual_seed(INCEPTION_SEED), device=device),
+        init_lpips_params(torch.Generator().manual_seed(LPIPS_SEED), "vgg",
+                          device=device))
+
+
+def make_metrics_data(torch, cfg, params, outdir):
+    """METRICS_DATA PNGs rendered by the generator at other latents (a
+    torch.Generator seeded METRICS_DATA_SEED): the stand-in dataset. One
+    synthesis call per 64 images; their uint8 images."""
+    import numpy as np
+    from PIL import Image
+
+    from stylemc_torch.edit import to_u8_nhwc
+    from stylemc_torch.models.stylegan2.generator import (
+        mapping, synthesis, w_to_s)
+
+    os.makedirs(outdir)
+    gen = torch.Generator().manual_seed(METRICS_DATA_SEED)
+    imgs = []
+    with torch.no_grad():
+        for _ in range(0, METRICS_DATA, 64):
+            z = torch.randn((64, cfg.z_dim), generator=gen).cuda()
+            s = w_to_s(params, cfg, mapping(params, cfg, z))
+            imgs.append(to_u8_nhwc(synthesis(params, cfg, s)).cpu().numpy())
+    imgs = np.concatenate(imgs)
+    for i, img in enumerate(imgs):
+        Image.fromarray(img).save(os.path.join(outdir, f"img{i:04d}.png"))
+    return imgs
+
+
+def phase_metrics(torch, net, tmp, smi, paths):
+    """calc_metrics at full width: the FFHQ-256 generator, seeded Inception
+    v3 (both variants at 299) and LPIPS-VGG16, 512 generated images against
+    a directory of 512 PNGs that the generator rendered at other latents.
+    The CLI runs as a subprocess with the launches counted per metric; the
+    results are finite and in range. Card against CPU on 16 of the images:
+    Inception's features (both variants) and LPIPS-VGG distances, each
+    gate fixed beside a TF32 control that must fail it. Throughput of the
+    metric loop, of Inception alone and of PPL's pairs; one profiled batch's
+    device split and idle share; peak memory."""
+    import numpy as np
+
+    from stylemc_torch.convert import params_from_numpy
+    from stylemc_torch.edit import to_u8_nhwc
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.losses.lpips import lpips_distances
+    from stylemc_torch.metrics import MetricOptions
+    from stylemc_torch.metrics.inception import inception_features
+    from stylemc_torch.metrics.metric_main import (
+        _gen_images, compute_generator_features)
+    from stylemc_torch.metrics.ppl import compute_ppl
+    from stylemc_torch.models.stylegan2.generator import (
+        inference_cfg, mapping, synthesis, w_to_s)
+
+    t0 = time.perf_counter()
+    cfg, params = load_generator(net, device="cuda")
+    cfg = inference_cfg(cfg)
+    data = os.path.join(tmp, "metrics_data")
+    imgs, launches = count_launches(
+        lambda: make_metrics_data(torch, cfg, params, data))
+    record_launches(paths, cfg, "metrics_data", launches, METRICS_DATA // 64)
+    data_s = time.perf_counter() - t0
+
+    # the CLI, every metric in one process, launches counted per metric
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", METRICS_RUNNER, "stylemc_torch.cli.calc_metrics",
+         "--network", net, "--metrics", METRICS, "--num_gen",
+         str(METRICS_NUM_GEN), "--batch", str(METRICS_BATCH),
+         "--allow_random_init", "--data", data], cwd=ROOT, timeout=900,
+        capture_output=True, text=True)
+    cli_s = time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise RuntimeError(f"calc_metrics exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    lines = [x for x in proc.stdout.splitlines() if x.startswith("{")]
+    per_metric = json.loads(lines[-1])
+    results = {r["metric"]: r for r in map(json.loads, lines[:-1])}
+    calls = METRICS_NUM_GEN // METRICS_BATCH
+    for name, launched in per_metric.items():
+        # PPL renders both ends of each pair: two synthesis calls a batch
+        record_launches(paths, cfg, f"metrics_{name}", launched,
+                        2 * calls if name == "ppl2_wend" else calls)
+
+    def finite(*keys):
+        return all(np.isfinite(results[m][k]) for m, k in keys)
+
+    r = {m: results[m] for m in METRICS.split(",")}
+    checks = {
+        "all_metrics": sorted(r) == sorted(METRICS.split(",")),
+        "finite": finite(("fid50k_full", "fid50k_full"),
+                         ("kid50k_full", "kid50k_full"),
+                         ("pr50k3_full", "pr50k3_full_precision"),
+                         ("pr50k3_full", "pr50k3_full_recall"),
+                         ("is50k", "is50k_mean"), ("is50k", "is50k_std"),
+                         ("ppl2_wend", "ppl2_wend")),
+        "fid_nonnegative": r["fid50k_full"]["fid50k_full"] >= 0,
+        "precision_in_0_1": 0 <= r["pr50k3_full"]["pr50k3_full_precision"] <= 1,
+        "recall_in_0_1": 0 <= r["pr50k3_full"]["pr50k3_full_recall"] <= 1,
+        "is_at_least_1": r["is50k"]["is50k_mean"] >= 1,
+        "ppl_nonnegative": r["ppl2_wend"]["ppl2_wend"] >= 0,
+        "detector_fid2015": all(v["detector"] == "fid2015"
+                                for v in r.values()),
+    }
+
+    # card against CPU on 16 of the images, TF32 off, and the TF32 control
+    inc, lp = metric_detectors(torch, "cuda")
+    inc_c = params_from_numpy(inc, "cpu")
+    lp_c = params_from_numpy(lp, "cpu")
+    u8 = torch.from_numpy(imgs[:METRICS_PARITY_IMAGES])
+    x = u8.permute(0, 3, 1, 2).float() / 127.5 - 1
+    readings = {}
+    with torch.no_grad():
+        for variant in ("fid2015", "tv"):
+            cpu = inception_features(inc_c, u8, variant=variant)
+            card = inception_features(inc, u8.cuda(), variant=variant).cpu()
+            with tf32_control(torch):
+                t32 = inception_features(inc, u8.cuda(),
+                                         variant=variant).cpu()
+            readings[f"inception_{variant}_rel_l2"] = (
+                _rel(card, cpu), _rel(t32, cpu), INCEPTION_REL_L2)
+        cpu = lpips_distances(lp_c, x[0::2], x[1::2], "vgg")
+        card = lpips_distances(lp, x[0::2].cuda(), x[1::2].cuda(),
+                               "vgg").cpu()
+        with tf32_control(torch):
+            t32 = lpips_distances(lp, x[0::2].cuda(), x[1::2].cuda(),
+                                  "vgg").cpu()
+        readings["lpips_vgg_rtol"] = (
+            float(((card - cpu).abs() / cpu.abs()).max()),
+            float(((t32 - cpu).abs() / cpu.abs()).max()), LPIPS_RTOL)
+
+    # throughput: the metric loop (generator + detector), each alone, PPL
+    torch.cuda.reset_peak_memory_stats()
+    opts = MetricOptions(gen_params=params, gen_cfg=cfg, device="cuda",
+                         batch_size=METRICS_BATCH, num_gen=128)
+
+    def features_fn(u):
+        return inception_features(inc, u)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    timed(lambda: compute_generator_features(opts, features_fn, 32))
+    _, loop_s = timed(lambda: compute_generator_features(opts, features_fn,
+                                                         128))
+    _, gen_s = timed(lambda: [None for _ in _gen_images(opts, 128)])
+    u16 = next(_gen_images(opts, METRICS_BATCH))
+    u64 = torch.cat([u16] * 4)
+    with torch.no_grad():
+        inc16_ms = event_ms(lambda: features_fn(u16), iters=20)
+        inc64_ms = event_ms(lambda: features_fn(u64), iters=10)
+    ppl_kw = dict(num_samples=64, batch_size=METRICS_BATCH,
+                  gen_params=params, device="cuda")
+
+    def ppl():
+        return compute_ppl(
+            lambda g, z: mapping(g, cfg, z),
+            lambda g, w: synthesis(g, cfg, w_to_s(g, cfg, w)), lp,
+            cfg.z_dim, **ppl_kw)
+
+    ppl()
+    _, ppl_s = timed(ppl)
+    z = torch.randn((METRICS_BATCH, cfg.z_dim),
+                    generator=torch.Generator().manual_seed(5)).cuda()
+
+    def render():
+        with torch.no_grad():
+            return to_u8_nhwc(synthesis(params, cfg, w_to_s(
+                params, cfg, mapping(params, cfg, z))))
+
+    def one_batch():
+        with torch.no_grad():
+            return features_fn(render())
+
+    gen_busy = profiled(torch, render)[3]
+    det_busy = profiled(torch, lambda: features_fn(u16))[3]
+    breakdown = device_breakdown(torch, one_batch, top=8)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    emit({"phase": "metrics", "card": smi,
+          "seconds": time.perf_counter() - t0, "data_seconds": data_s,
+          "cli_seconds": cli_s, "results": r,
+          "launches_by_metric": per_metric,
+          "metric_loop_images_per_s": 128 / loop_s,
+          "generator_images_per_s": 128 / gen_s,
+          "detector_images_per_s": {"16": 16e3 / inc16_ms,
+                                    "64": 64e3 / inc64_ms},
+          "inception_ms": {"16": inc16_ms, "64": inc64_ms},
+          "ppl_pairs_per_s": 64 / ppl_s,
+          "device_ms_per_batch16": {"generator": gen_busy,
+                                    "detector": det_busy},
+          "generator_device_share": gen_busy / (gen_busy + det_busy),
+          "one_batch": breakdown, "peak_gb": peak_gb,
+          "parity": {k: {"value": v, "tf32_control": t, "gate": g}
+                     for k, (v, t, g) in readings.items()},
+          "times_are": "metric loop, generator and PPL: host clock over 128 "
+                       "images / 64 pairs after a warm run; Inception: CUDA "
+                       "events over back-to-back batches",
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"metrics checks failed: {checks}")
+    for name, (v, t, g) in readings.items():
+        _gate(name, v, t, g, {})
+
+
+def phase_lec(torch, ckpt, photos, paths):
+    """calculate_lec on the seeded e4e_ffhq_encode (its full-width IR-SE-50
+    encoder and FFHQ-1024 decoder) over the e4e phase's 8 photos in two
+    batches of 4, a seeded W+ direction added as the edit and subtracted
+    as its inverse: finite, one 1024 synthesis call per batch."""
+    import numpy as np
+
+    from stylemc_torch.metrics.lec import calculate_lec
+    from stylemc_torch.models.e4e.psp import load_psp_from_checkpoint
+
+    t0 = time.perf_counter()
+    psp = load_psp_from_checkpoint(ckpt, E4E_SIZE, device="cuda")
+    x = _read_photos(photos).astype(np.float32).transpose(0, 3, 1, 2)
+    batches = [x[lo:lo + 4] / 127.5 - 1 for lo in range(0, len(x), 4)]
+    n_codes = psp.latent_avg.shape[0]
+    d = torch.from_numpy(np.random.RandomState(E4E_SEEDS["direction"]).randn(
+        1, n_codes, 512).astype(np.float32) * LEC_DIRECTION_SCALE).cuda()
+    lec, launches = count_launches(lambda: calculate_lec(
+        psp, iter(batches), lambda w: w + d, lambda w: w - d,
+        n_batches=len(batches)))
+    record_launches(paths, psp.decoder_cfg, "lec", launches, len(batches))
+    emit({"phase": "lec", "lec": lec, "batches": len(batches),
+          "seconds": time.perf_counter() - t0, "launches": launches})
+    if not np.isfinite(lec):
+        raise AssertionError(f"LEC is not finite: {lec}")
+
+
+def phase_nada(torch, net, editor, models, smi, paths):
+    """nada_loss on 4 full-width FFHQ-256 renders (seeds 1-4) and their
+    edit by the seeded Δs, with the train phase's seeded ViT-B/32 and a
+    seeded RN50 (direction, global, manifold and the RN50 texture term all
+    on), forward and backward to Δs, on the card and on the CPU: the loss
+    and the Δs gradient at fixed gates, each beside a TF32 control that
+    must fail it; the step's time and RN50's encode_image at batch 4; B1
+    twice and B2 once per step."""
+    from stylemc_torch.convert import params_from_numpy
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.losses.clip_loss_nada import (
+        NADATextAnchors, nada_loss, preprocess_nada)
+    from stylemc_torch.models.clip import (
+        CLIP_CONFIGS, FallbackTokenizer, encode_image, init_clip_params)
+    from stylemc_torch.models.stylegan2.generator import synthesis
+    from stylemc_torch.train.find_direction import (
+        TRAINABLE, assemble_direction)
+
+    t0 = time.perf_counter()
+    cfg, gp, clip_cpu, _, clip, _ = models
+    _, gp_cpu = load_generator(net, device="cpu")
+    vit_cfg, vit_cpu = clip_cpu["ViT-B/32"]
+    vit = clip["ViT-B/32"][1]
+    rn_cfg = CLIP_CONFIGS["RN50"]
+    rn_cpu = init_clip_params(torch.Generator().manual_seed(RN50_SEED),
+                              rn_cfg, device="cpu")
+    rn = params_from_numpy(rn_cpu, "cuda")
+    styles = editor.styles_from_seeds([1, 2, 3, 4]).cpu()
+    delta = torch.randn((1, len(TRAINABLE), 512),
+                        generator=torch.Generator().manual_seed(21)) * 0.5
+    tok = FallbackTokenizer()
+
+    def step(g, vp, rp, device):
+        anchors = NADATextAnchors.create(vp, vit_cfg, *NADA_PROMPTS,
+                                         tokenizer=tok)
+        s = styles.to(device)
+        with torch.no_grad():
+            src = synthesis(g, cfg, s)
+        dl = delta.to(device).requires_grad_(True)
+        tgt = synthesis(g, cfg, s + assemble_direction(dl))
+        loss = nada_loss(vp, vit_cfg, src, tgt, anchors,
+                         lambda_direction=1.0, lambda_global=0.5,
+                         lambda_manifold=0.5, rn_params=rp, rn_cfg=rn_cfg,
+                         texture_image=src, lambda_texture=1.0)
+        grad, = torch.autograd.grad(loss, dl)
+        return float(loss.detach()), grad.cpu()
+
+    (loss, grad), launches = count_launches(lambda: step(gp, vit, rn,
+                                                         "cuda"))
+    record_launches(paths, cfg, "nada", launches, 2, 1)
+    with tf32_control(torch):
+        loss_t, grad_t = step(gp, vit, rn, "cuda")
+    t1 = time.perf_counter()
+    loss_c, grad_c = step(gp_cpu, vit_cpu, rn_cpu, "cpu")
+    cpu_s = time.perf_counter() - t1
+    step_ms = event_ms(lambda: step(gp, vit, rn, "cuda"), iters=5,
+                       warmup=1)
+    x = preprocess_nada(synthesis(gp, cfg, styles.cuda()).detach(),
+                        rn_cfg.image_resolution)
+    with torch.no_grad():
+        rn50_ms = event_ms(lambda: encode_image(rn, rn_cfg, x), iters=20)
+    readings = {"nada_loss_rtol": (abs(loss - loss_c) / abs(loss_c),
+                                   abs(loss_t - loss_c) / abs(loss_c),
+                                   NADA_LOSS_RTOL),
+                "nada_grad_rel_l2": (_rel(grad, grad_c), _rel(grad_t, grad_c),
+                                     NADA_GRAD_REL_L2)}
+    emit({"phase": "nada", "card": smi, "loss": loss, "cpu_loss": loss_c,
+          "grad_norm": float(grad_c.norm()),
+          "parity": {k: {"value": v, "tf32_control": t, "gate": g}
+                     for k, (v, t, g) in readings.items()},
+          "step_ms": step_ms, "rn50_encode_image_b4_ms": rn50_ms,
+          "times_are": "CUDA events over back-to-back calls (host cost "
+                       "included); the step builds its text anchors, renders "
+                       "the source and the edit and backpropagates to Δs",
+          "cpu_s": cpu_s, "seconds": time.perf_counter() - t0,
+          "launches": launches})
+    for name, (v, t, g) in readings.items():
+        _gate(name, v, t, g, {})
+
+
+def phase_warp(tmp, files, paths):
+    """warp_images over 4 [orig|edited] pairs that the clis phase's
+    generate_fromS wrote, with the seeded MTCNN and MobileNet-GDConv files,
+    as a subprocess: a strip per pair, both halves with their landmarks
+    and the original warped onto the edit's."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from stylemc_torch.models.stylegan2.generator import GeneratorConfig
+
+    src = os.path.join(tmp, "out")
+    pairs = os.path.join(tmp, "warp_pairs")
+    outdir = os.path.join(tmp, "warped")
+    os.makedirs(pairs)
+    names = sorted(f for f in os.listdir(src) if f.endswith(".jpeg"))
+    for name in names[:WARP_PAIRS]:
+        shutil.copy(os.path.join(src, name), pairs)
+    mtcnn_dir, mobilenet = files
+    secs, out = run_cli(paths, GeneratorConfig(img_resolution=256), "warp",
+                        "warp_images", 0, 0, "--indir", pairs, "--outdir",
+                        outdir, env={"STYLEMC_MTCNN_DIR": mtcnn_dir,
+                                     "STYLEMC_MOBILENET": mobilenet})
+    shapes = [np.asarray(Image.open(os.path.join(outdir, f))).shape
+              for f in sorted(os.listdir(outdir))]
+    pair_shape = np.asarray(Image.open(os.path.join(pairs, names[0]))).shape
+    want = (pair_shape[0], 3 * (pair_shape[1] // 2), 3)
+    checks = {"processed_all": f"processed {WARP_PAIRS}/{WARP_PAIRS}" in out,
+              "outputs": len(shapes) == WARP_PAIRS,
+              "shapes": all(s == want for s in shapes)}
+    emit({"phase": "warp", "seconds": secs, "outputs": shapes,
+          "tail": out.strip().splitlines()[-2:], "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"warp checks failed: {checks}")
+
+
 MODCONV_REPLACES = {
     "modconv_fwd": ("modconv_pallas.py:88", "_fwd_kernel/_fwd_call"),
     "modconv_bwd_data": ("modconv_pallas.py:170",
@@ -3677,6 +4117,7 @@ def main() -> int:
         # training first: its timed run comes before any profiler trace
         editor, models = phase_train(torch, net, smi, paths)
         phase_train_parity(torch, net, editor, direction, models, paths)
+        phase_nada(torch, net, editor, models, smi, paths)
         # prompt sweeps and the landmarks stack, on the train phase's
         # models and seeds
         styles = editor.styles_from_seeds(list(range(TRAIN_SEEDS)))
@@ -3705,9 +4146,13 @@ def main() -> int:
         phase_clis(editor, net, direction, tmp, paths)
         del editor
         torch.cuda.empty_cache()
+        phase_warp(tmp, landmark_files, paths)
+        phase_metrics(torch, net, tmp, smi, paths)
+        torch.cuda.empty_cache()
         phase_mapper_serve(torch, net, direction, tmp, smi, paths)
         torch.cuda.empty_cache()
-        phase_e4e(torch, tmp, smi, paths, landmark_files)
+        ckpt, photos = phase_e4e(torch, tmp, smi, paths, landmark_files)
+        phase_lec(torch, ckpt, photos, paths)
 
     timed = {"upsample2x": CHAIN_SHAPES, "downsample2x": TRAIN_DOWN_SHAPES}
     sources = {"upsample2x": ("upfirdn2d_pallas.py:132", "_upsample2x_core"),
@@ -3766,6 +4211,15 @@ def main() -> int:
         kernels[-1].update({f"mapper_b2_{k}": sum(r[k] for r in step_rows)
                             for k in ("kernel_ms", "plain_ms", "bound_ms",
                                       "library_ms")})
+        if name == "upsample2x":
+            # one LEC decode (batch 4, FFHQ-1024) and the NADA step's
+            # synthesis call (batch 4, FFHQ-256)
+            for tag, shapes in (("lec_b4", LEC_UP_SHAPES),
+                                ("nada_b4", NADA_UP_SHAPES)):
+                sub = [r for r in rows if tuple(r["shape"]) in shapes]
+                kernels[-1].update({f"{tag}_{k}": sum(r[k] for r in sub)
+                                    for k in ("kernel_ms", "plain_ms",
+                                              "bound_ms", "library_ms")})
     kernels += modconv_entries(modconv_rows, paths, smi, mma_rate)
     print(smi, flush=True)
     emit({"kernels": kernels})

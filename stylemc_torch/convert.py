@@ -41,3 +41,11 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     return {k: params_to_numpy(v) if isinstance(v, dict)
             else v.detach().cpu().numpy().astype(np.float32)
             for k, v in params.items()}
+
+
+def as_float32(v, device) -> torch.Tensor:
+    """A tensor or anything `np.asarray` takes → a float32 tensor on
+    `device` (arrays are copied, so read-only ones are fine)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.array(v, dtype=np.float32)).to(device)

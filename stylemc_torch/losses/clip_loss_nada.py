@@ -1,13 +1,15 @@
-"""StyleGAN-NADA CLIP terms that find_direction reads (counterpart of
-`stylemc_tpu/losses/clip_loss_nada.py:27-116`): template-averaged text
-directions over the 27 imagenet templates, NADA preprocessing, and the
-directional loss. The global, angle, texture and patch losses of the JAX
-module are not ported yet (ROADMAP A12b)."""
+"""StyleGAN-NADA CLIP losses (counterpart of
+`stylemc_tpu/losses/clip_loss_nada.py`): template-averaged text directions
+over the 27 imagenet templates, NADA preprocessing, the directional,
+global, angle (manifold), texture (an RN50 embedding MSE) and patch
+losses, and their weighted sum `nada_loss`. Patch centres come from the
+caller, on the host, as in the JAX package."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..models.clip import encode_image, encode_text, tokenize
@@ -98,3 +100,110 @@ class NADATextAnchors:
                                           device=src.device),
         )
 
+
+
+def _image_features(clip_params, clip_cfg, img):
+    return _normalize(encode_image(
+        clip_params, clip_cfg, preprocess_nada(img, clip_cfg.image_resolution)))
+
+
+def clip_directional_loss_nada(clip_params, clip_cfg, src_img, target_img,
+                               anchors: NADATextAnchors,
+                               direction_loss_type: str = "cosine"):
+    src = _image_features(clip_params, clip_cfg, src_img)
+    tgt = _image_features(clip_params, clip_cfg, target_img)
+    edit = tgt - src
+    edit = edit / torch.clamp(torch.linalg.vector_norm(edit, dim=-1,
+                                                       keepdim=True), min=1e-6)
+    return direction_loss(edit, anchors.target_direction.to(edit.dtype),
+                          direction_loss_type)
+
+
+def global_clip_loss(clip_params, clip_cfg, img, anchors: NADATextAnchors):
+    """(1 − logits/100).mean() over logit_scale-weighted image-text
+    logits."""
+    image_f = _image_features(clip_params, clip_cfg, img)
+    text_f = _normalize(encode_text(clip_params, clip_cfg,
+                                    anchors.global_tokens))
+    logits = torch.exp(clip_params["logit_scale"]) * image_f @ text_f.T
+    return torch.mean(1.0 - logits / 100.0)
+
+
+def clip_angle_loss(clip_params, clip_cfg, src_img, target_img,
+                    anchors: NADATextAnchors):
+    cos_text = anchors.target_text_features @ anchors.src_text_features.T
+    src = _image_features(clip_params, clip_cfg, src_img)[:, :, None]
+    tgt = _image_features(clip_params, clip_cfg, target_img)[:, None, :]
+    cos_img = torch.clamp(tgt @ src, -1.0, 1.0)
+    return torch.mean(torch.abs(cos_img - cos_text[None].expand_as(cos_img)))
+
+
+def cnn_feature_loss(rn_params, rn_cfg, src_img, target_img):
+    """The texture loss: MSE between RN50 embeddings."""
+    f_src = encode_image(rn_params, rn_cfg,
+                         preprocess_nada(src_img, rn_cfg.image_resolution))
+    f_tgt = encode_image(rn_params, rn_cfg,
+                         preprocess_nada(target_img, rn_cfg.image_resolution))
+    return torch.mean(torch.square(f_src - f_tgt))
+
+
+def nada_loss(clip_params, clip_cfg, src_img, target_img,
+              anchors: NADATextAnchors,
+              lambda_direction: float = 1.0, lambda_global: float = 0.0,
+              lambda_manifold: float = 0.0,
+              rn_params=None, rn_cfg=None, texture_image=None,
+              lambda_texture: float = 0.0,
+              direction_loss_type: str = "cosine"):
+    """The composite NADA loss. The patch loss is separate
+    (`patch_directional_loss`): its centres come from the host."""
+    loss = 0.0
+    if lambda_global:
+        loss += lambda_global * global_clip_loss(clip_params, clip_cfg,
+                                                 target_img, anchors)
+    if lambda_direction:
+        loss += lambda_direction * clip_directional_loss_nada(
+            clip_params, clip_cfg, src_img, target_img, anchors,
+            direction_loss_type)
+    if lambda_manifold:
+        loss += lambda_manifold * clip_angle_loss(clip_params, clip_cfg,
+                                                  src_img, target_img, anchors)
+    if lambda_texture and texture_image is not None and rn_params is not None:
+        loss += lambda_texture * cnn_feature_loss(rn_params, rn_cfg,
+                                                  texture_image, target_img)
+    return loss
+
+
+def generate_patches(img, patch_centers, size: int):
+    """[N·P, C, size, size] patches around patch_centers [N·P, 2] (x, y)
+    ints. Each window's start is read as `jax.lax.dynamic_slice` reads it:
+    a negative start counts from the end of its axis, and the window is
+    then clamped into the image."""
+    n, _, h, w = img.shape
+    centers = np.asarray(torch.as_tensor(patch_centers).cpu(), np.int64)
+    num_patches = centers.shape[0] // n
+    half = size // 2
+
+    def start(s, dim):
+        s = s + dim if s < 0 else s
+        return min(max(s, 0), dim - size)
+
+    patches = []
+    for b in range(n):
+        for p in range(num_patches):
+            cx, cy = centers[b * num_patches + p]
+            y0, x0 = start(int(cy) - half, h), start(int(cx) - half, w)
+            patches.append(img[b, :, y0:y0 + size, x0:x0 + size])
+    return torch.stack(patches, dim=0)
+
+
+def patch_directional_loss(clip_params, clip_cfg, src_img, target_img,
+                           patch_text_directions, patch_centers,
+                           patch_size: int = 510):
+    src_p = generate_patches(src_img, patch_centers, patch_size)
+    tgt_p = generate_patches(target_img, patch_centers, patch_size)
+    edit = _normalize(_image_features(clip_params, clip_cfg, tgt_p)
+                      - _image_features(clip_params, clip_cfg, src_p))
+    ptd = patch_text_directions.to(edit.dtype)
+    cosine_dists = 1.0 - (edit[:, None, :] * ptd[None, :, :]).sum(-1)
+    scores = cosine_dists * torch.softmax(edit @ ptd.T, dim=-1)
+    return torch.mean(scores)

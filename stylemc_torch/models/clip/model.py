@@ -1,12 +1,14 @@
-"""OpenAI CLIP (ViT-B/32, ViT-B/16) in functional torch (counterpart of
-`stylemc_tpu/models/clip/model.py`).
+"""OpenAI CLIP (ViT-B/32, ViT-B/16, RN50) in functional torch (counterpart
+of `stylemc_tpu/models/clip/model.py`).
 
 Image and text encoders with QuickGELU, pre-LN transformer blocks, a causal
 text mask and EOT-token text pooling, over a params dict with the JAX
 package's layout; `params_from_torch_state` maps the OpenAI state_dict
 namespace (visual.*, transformer.*, token_embedding, ...) onto it.
 Attention is a matmul plus a softmax, and the patch embedding a reshape plus
-a matmul, as in the JAX package. The RN50 image tower is not ported.
+a matmul, as in the JAX package. RN50's image tower is the ModifiedResNet:
+a three-conv stem, bottlenecks that average-pool before their stride
+(anti-aliasing), and an attention pool over the final grid.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ...device import DeviceLike, resolve_device
 
@@ -143,12 +146,84 @@ def encode_image_vit(params, cfg: CLIPConfig, image):
     return x @ vp["proj"].to(x.dtype)
 
 
+# ------------------------------------------------------- ModifiedResNet (RN50)
+
+
+def _conv(w, x, stride=1, padding=0):
+    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding)
+
+
+def _bn(p, x, eps=1e-5):
+    """Inference-mode batchnorm (running statistics)."""
+    scale = p["weight"] * torch.rsqrt(p["running_var"] + eps)
+    bias = p["bias"] - p["running_mean"] * scale
+    return x * scale[None, :, None, None].to(x.dtype) + \
+        bias[None, :, None, None].to(x.dtype)
+
+
+def _avg_pool(x, k):
+    return F.avg_pool2d(x, k, k)
+
+
+def _bottleneck(p, x, stride=1):
+    out = F.relu(_bn(p["bn1"], _conv(p["conv1_weight"], x)))
+    out = F.relu(_bn(p["bn2"], _conv(p["conv2_weight"], out, padding=1)))
+    if stride > 1:
+        out = _avg_pool(out, stride)
+    out = _bn(p["bn3"], _conv(p["conv3_weight"], out))
+    identity = x
+    if "downsample" in p:
+        identity = x if stride == 1 else _avg_pool(x, stride)
+        identity = _bn(p["downsample"]["1"],
+                       _conv(p["downsample"]["0_weight"], identity))
+    return F.relu(out + identity)
+
+
+def _attention_pool(p, x, n_heads):
+    """The mean token, added in front of the grid's tokens, attends to all
+    of them; its output, projected, is the embedding."""
+    n, c, h, w = x.shape
+    x = x.reshape(n, c, h * w).permute(2, 0, 1)  # [HW, N, C]
+    x = torch.cat([x.mean(dim=0, keepdim=True), x], dim=0)
+    x = x + p["positional_embedding"][:, None, :].to(x.dtype)
+    d = x.shape[-1]
+    q = _linear(p["q_proj"], x[:1])
+    k = _linear(p["k_proj"], x)
+    v = _linear(p["v_proj"], x)
+    hd = d // n_heads
+
+    def heads(t):
+        return t.permute(1, 0, 2).reshape(n, -1, n_heads, hd).transpose(1, 2)
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    scores = (qh @ kh.transpose(-1, -2)) / float(np.sqrt(hd))
+    out = torch.softmax(scores, dim=-1) @ vh
+    out = out.transpose(1, 2).reshape(n, 1, d)[:, 0]
+    return _linear(p["c_proj"], out)
+
+
+def encode_image_resnet(params, cfg: CLIPConfig, image):
+    """image: [N, 3, R, R], CLIP-normalized. → [N, embed_dim]."""
+    vp = params["visual"]
+    x = image
+    for i in (1, 2, 3):
+        x = F.relu(_bn(vp[f"bn{i}"], _conv(vp[f"conv{i}_weight"], x,
+                                           stride=2 if i == 1 else 1,
+                                           padding=1)))
+    x = _avg_pool(x, 2)
+    strides = (1, 2, 2, 2)
+    for li, depth in enumerate(cfg.vision_layers):
+        layer = vp[f"layer{li + 1}"]
+        for bi in range(depth):
+            x = _bottleneck(layer[f"{bi}"], x,
+                            stride=strides[li] if bi == 0 else 1)
+    return _attention_pool(vp["attnpool"], x, cfg.vision_heads)
+
+
 def encode_image(params, cfg: CLIPConfig, image):
     if cfg.is_vit:
         return encode_image_vit(params, cfg, image)
-    raise NotImplementedError(
-        "the RN50 image tower is not ported yet (ROADMAP A12b); use "
-        "ViT-B/32 or ViT-B/16")
+    return encode_image_resnet(params, cfg, image)
 
 
 # ----------------------------------------------------------------------- text
@@ -186,9 +261,6 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig,
     """Random init in CLIP's scheme (the JAX package's scales), drawn from
     `gen`; for tests and weightless runs. Real use imports OpenAI weights
     via `params_from_torch_state`."""
-    if not cfg.is_vit:
-        raise NotImplementedError(
-            "the RN50 image tower is not ported yet (ROADMAP A12b)")
     dev = resolve_device(device)
 
     def randn(shape, std):
@@ -219,19 +291,63 @@ def init_clip_params(gen: torch.Generator, cfg: CLIPConfig,
             },
         }
 
+    def bn(c):
+        return {"weight": torch.ones((c,), device=dev), "bias": zeros(c),
+                "running_mean": zeros(c),
+                "running_var": torch.ones((c,), device=dev)}
+
+    def bottleneck(cin, cmid, stride):
+        p = {"conv1_weight": randn((cmid, cin, 1, 1), cin ** -0.5),
+             "bn1": bn(cmid),
+             "conv2_weight": randn((cmid, cmid, 3, 3), (cmid * 9) ** -0.5),
+             "bn2": bn(cmid),
+             "conv3_weight": randn((cmid * 4, cmid, 1, 1), cmid ** -0.5),
+             "bn3": bn(cmid * 4)}
+        if stride > 1 or cin != cmid * 4:
+            p["downsample"] = {"0_weight": randn((cmid * 4, cin, 1, 1),
+                                                 cin ** -0.5),
+                               "1": bn(cmid * 4)}
+        return p
+
     w = cfg.vision_width
-    ps = cfg.vision_patch_size
-    grid = cfg.image_resolution // ps
-    visual = {
-        "conv1_weight": randn((w, 3, ps, ps), w ** -0.5),
-        "class_embedding": randn((w,), w ** -0.5),
-        "positional_embedding": randn((grid * grid + 1, w), w ** -0.5),
-        "ln_pre": ln(w),
-        "ln_post": ln(w),
-        "proj": randn((w, cfg.embed_dim), w ** -0.5),
-        "transformer": {f"resblock{i}": block(w)
-                        for i in range(cfg.vision_layers)},
-    }
+    if cfg.is_vit:
+        ps = cfg.vision_patch_size
+        grid = cfg.image_resolution // ps
+        visual = {
+            "conv1_weight": randn((w, 3, ps, ps), w ** -0.5),
+            "class_embedding": randn((w,), w ** -0.5),
+            "positional_embedding": randn((grid * grid + 1, w), w ** -0.5),
+            "ln_pre": ln(w),
+            "ln_post": ln(w),
+            "proj": randn((w, cfg.embed_dim), w ** -0.5),
+            "transformer": {f"resblock{i}": block(w)
+                            for i in range(cfg.vision_layers)},
+        }
+    else:
+        visual = {"conv1_weight": randn((w // 2, 3, 3, 3), 0.05),
+                  "bn1": bn(w // 2),
+                  "conv2_weight": randn((w // 2, w // 2, 3, 3), 0.05),
+                  "bn2": bn(w // 2),
+                  "conv3_weight": randn((w, w // 2, 3, 3), 0.05),
+                  "bn3": bn(w)}
+        cin = w
+        for li, depth in enumerate(cfg.vision_layers):
+            cmid = w * 2 ** li
+            layer = {}
+            for bi in range(depth):
+                layer[f"{bi}"] = bottleneck(
+                    cin, cmid, 2 if bi == 0 and li > 0 else 1)
+                cin = cmid * 4
+            visual[f"layer{li + 1}"] = layer
+        spacial = cfg.image_resolution // 32
+        visual["attnpool"] = {
+            "positional_embedding": randn((spacial ** 2 + 1, cin),
+                                          cin ** -0.5),
+            "q_proj": linear(cin, cin, 0.02),
+            "k_proj": linear(cin, cin, 0.02),
+            "v_proj": linear(cin, cin, 0.02),
+            "c_proj": linear(cin, cfg.embed_dim, 0.02),
+        }
     tw = cfg.transformer_width
     return {
         "visual": visual,
@@ -252,9 +368,6 @@ def params_from_torch_state(state: Dict[str, np.ndarray], cfg: CLIPConfig
                             ) -> Dict[str, Any]:
     """Map an OpenAI CLIP state_dict (numpy values) onto the params tree of
     numpy arrays (`convert.params_from_numpy` puts it on a device)."""
-    if not cfg.is_vit:
-        raise NotImplementedError(
-            "the RN50 image tower is not ported yet (ROADMAP A12b)")
     t = state
 
     def block(prefix):
@@ -277,20 +390,50 @@ def params_from_torch_state(state: Dict[str, np.ndarray], cfg: CLIPConfig
             },
         }
 
-    visual = {
-        "conv1_weight": t["visual.conv1.weight"],
-        "class_embedding": t["visual.class_embedding"],
-        "positional_embedding": t["visual.positional_embedding"],
-        "ln_pre": {"weight": t["visual.ln_pre.weight"],
-                   "bias": t["visual.ln_pre.bias"]},
-        "ln_post": {"weight": t["visual.ln_post.weight"],
-                    "bias": t["visual.ln_post.bias"]},
-        "proj": t["visual.proj"],
-        "transformer": {
-            f"resblock{i}": block(f"visual.transformer.resblocks.{i}")
-            for i in range(cfg.vision_layers)
-        },
-    }
+    def bn(prefix):
+        return {k: t[f"{prefix}.{k}"] for k in
+                ("weight", "bias", "running_mean", "running_var")}
+
+    if cfg.is_vit:
+        visual = {
+            "conv1_weight": t["visual.conv1.weight"],
+            "class_embedding": t["visual.class_embedding"],
+            "positional_embedding": t["visual.positional_embedding"],
+            "ln_pre": {"weight": t["visual.ln_pre.weight"],
+                       "bias": t["visual.ln_pre.bias"]},
+            "ln_post": {"weight": t["visual.ln_post.weight"],
+                        "bias": t["visual.ln_post.bias"]},
+            "proj": t["visual.proj"],
+            "transformer": {
+                f"resblock{i}": block(f"visual.transformer.resblocks.{i}")
+                for i in range(cfg.vision_layers)
+            },
+        }
+    else:
+        visual = {}
+        for i in (1, 2, 3):
+            visual[f"conv{i}_weight"] = t[f"visual.conv{i}.weight"]
+            visual[f"bn{i}"] = bn(f"visual.bn{i}")
+        for li, depth in enumerate(cfg.vision_layers):
+            layer = {}
+            for bi in range(depth):
+                pfx = f"visual.layer{li + 1}.{bi}"
+                p = {}
+                for ci in (1, 2, 3):
+                    p[f"conv{ci}_weight"] = t[f"{pfx}.conv{ci}.weight"]
+                    p[f"bn{ci}"] = bn(f"{pfx}.bn{ci}")
+                if f"{pfx}.downsample.0.weight" in t:
+                    p["downsample"] = {
+                        "0_weight": t[f"{pfx}.downsample.0.weight"],
+                        "1": bn(f"{pfx}.downsample.1")}
+                layer[f"{bi}"] = p
+            visual[f"layer{li + 1}"] = layer
+        visual["attnpool"] = {
+            "positional_embedding": t["visual.attnpool.positional_embedding"],
+            **{name: {"weight": t[f"visual.attnpool.{name}.weight"],
+                      "bias": t[f"visual.attnpool.{name}.bias"]}
+               for name in ("q_proj", "k_proj", "v_proj", "c_proj")},
+        }
     return {
         "visual": visual,
         "token_embedding": t["token_embedding.weight"],

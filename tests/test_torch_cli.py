@@ -24,6 +24,7 @@ from stylemc_torch.convert import params_to_numpy
 from stylemc_torch.io import (PersistentStub, load_generator,
                               load_network_pkl, load_native, save_native)
 from test_pickle_loader import fabricate_pkl
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG_KW = dict(img_resolution=32, channel_base=1024, channel_max=64,
               mapping_layers=2)

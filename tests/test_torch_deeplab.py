@@ -25,6 +25,7 @@ from stylemc_torch.convert import params_from_numpy
 from stylemc_torch.models import deeplab as tdl
 from stylemc_torch.models.stylegan2.generator import GeneratorConfig
 from tiny import tiny_gen
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(layers=(1, 1, 1, 1), width=16)
 

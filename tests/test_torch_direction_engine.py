@@ -34,6 +34,7 @@ from stylemc_torch.models.clip import FallbackTokenizer
 from stylemc_torch.train import find_direction as tfd
 from test_torch_find_direction import (  # noqa: F401
     _kw, _resume, cli_files, setup, tiny_arcface_clis)
+from torch_threads import one_torch_thread  # noqa: F401
 
 jfd = importlib.import_module("stylemc_tpu.train.find_direction")
 PROMPTS = ["a smiling face", "an old face"]
@@ -59,14 +60,39 @@ def _engines(setup, n_items=12, with_jax=True, **kw):  # noqa: F811
     return j, t
 
 
+@pytest.fixture(scope="module")
+def engines(setup):  # noqa: F811
+    """Both packages' engines on the 12 items, built (and precomputed)
+    once for the tests that run the default loss on them."""
+    return _engines(setup)
+
+
+@pytest.fixture(scope="module")
+def serial(engines):
+    """The port's serial `optimize` of a prompt from `_resume(seed)`,
+    computed once per (prompt, seed)."""
+    runs = {}
+
+    def get(prompt, seed):
+        if (prompt, seed) not in runs:
+            runs[prompt, seed] = engines[1].optimize(
+                prompt, resume_direction=_resume(seed))
+        return runs[prompt, seed]
+
+    return get
+
+
 @pytest.mark.parametrize("loss_type", ["default", "nada"])
-def test_optimize_matches_jax(setup, loss_type):  # noqa: F811
-    j, t = _engines(setup, clip_loss_type=loss_type)
+def test_optimize_matches_jax(setup, engines, serial,  # noqa: F811
+                              loss_type):
+    j, t = engines if loss_type == "default" else \
+        _engines(setup, clip_loss_type=loss_type)
     resume = _resume()
     # the second prompt swaps the anchors under the same precompute
     for prompt in PROMPTS if loss_type == "default" else PROMPTS[:1]:
         jd, jinfo = j.optimize(prompt, resume_direction=resume)
-        td, tinfo = t.optimize(prompt, resume_direction=resume)
+        td, tinfo = serial(prompt, 5) if loss_type == "default" else \
+            t.optimize(prompt, resume_direction=resume)
         assert tinfo["iterations"] == jinfo["iterations"] == 3
         np.testing.assert_allclose(tinfo["history"], jinfo["history"],
                                    rtol=1e-4)
@@ -110,12 +136,12 @@ def test_optimize_batch_one_step_matches_jax(setup):  # noqa: F811
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-5)
 
 
-def test_optimize_batch_matches_jax_and_the_serial_run(setup,  # noqa: F811
+def test_optimize_batch_matches_jax_and_the_serial_run(engines, serial,
                                                        monkeypatch):
     """Both prompts from seeded directions (JAX draws its fresh start
     itself): the batched run against JAX's and against each prompt's
     serial run."""
-    j, t = _engines(setup)
+    j, t = engines
     starts = [_resume(5), _resume(6)]
     renders = []
     synthesis = tfd.synthesis
@@ -138,8 +164,8 @@ def test_optimize_batch_matches_jax_and_the_serial_run(setup,  # noqa: F811
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-4)
     for p, prompt in enumerate(PROMPTS):
         np.testing.assert_allclose(
-            td[p].numpy(), t.optimize(prompt, resume_direction=starts[p])[0]
-            .numpy(), rtol=0, atol=1e-4)
+            td[p].numpy(), serial(prompt, 5 + p)[0].numpy(), rtol=0,
+            atol=1e-4)
     # the prompts part ways
     a, b = (td[p].numpy().ravel() - starts[p].ravel() for p in range(2))
     assert np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)) < 0.99

@@ -27,6 +27,7 @@ from stylemc_torch import ops as tops
 from stylemc_torch.ops.kernels.upfirdn2d import (
     _canonical_taps, downsample2d_kernel, downsample2d_plain,
     upsample2d_kernel, upsample2d_plain)
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 FN = tops.setup_filter_np([1, 3, 3, 1])

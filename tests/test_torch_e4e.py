@@ -43,6 +43,7 @@ from stylemc_torch.io import export, load_generator, rosinality
 from stylemc_torch.models.e4e import editings, encoders, psp
 from stylemc_torch.models.stylegan2 import generator as tgen
 from tiny import TINY_E4E_LAYOUT
+from torch_threads import one_torch_thread  # noqa: F401
 
 ENC_TYPES = ("Encoder4Editing", "GradualStyleEncoder",
              "SingleStyleCodeEncoder")

@@ -33,6 +33,7 @@ from stylemc_torch.utils import model_zoo as tzoo
 from test_pickle_loader import fabricate_pkl
 from test_torch_perception import write_arcface_pth
 from tiny import TINY_ARCFACE_LAYOUT, tiny_arcface, tiny_clip_models, tiny_gen
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the package's __init__ exports the function under the module's name
 jfd = importlib.import_module("stylemc_tpu.train.find_direction")
@@ -83,6 +84,14 @@ def _run_torch(torch_side, styles, resume=None, callback=None, **kw):
                               resume_direction=resume, callback=callback)
 
 
+@pytest.fixture(scope="module")
+def small_run(setup):
+    """The port's clip_type 'small' run from `_resume()`, which three
+    tests hold other runs against: computed once."""
+    _, torch_side, styles = setup
+    return _run_torch(torch_side, styles, _resume(), clip_type="small")
+
+
 def test_schedules_match_jax():
     for it in (1, 7, 33):
         assert tfd.cosine_lr(1.5, it, 33) == jfd.cosine_lr(1.5, it, 33)
@@ -99,7 +108,7 @@ def test_schedules_match_jax():
 
 
 @pytest.mark.parametrize("clip_type", ["small", "double"])
-def test_find_direction_matches_jax(setup, clip_type):
+def test_find_direction_matches_jax(setup, small_run, clip_type):
     jax_side, torch_side, styles = setup
     resume = _resume()
     gen_cfg, gen_params, clips, arc = jax_side
@@ -107,7 +116,8 @@ def test_find_direction_matches_jax(setup, clip_type):
         gen_params, gen_cfg, styles, clips, arc,
         jfd.FindDirectionConfig(**_kw(clip_type=clip_type)),
         tokenizer=JaxTokenizer(), resume_direction=resume)
-    td, tinfo = _run_torch(torch_side, styles, resume, clip_type=clip_type)
+    td, tinfo = small_run if clip_type == "small" else \
+        _run_torch(torch_side, styles, resume, clip_type=clip_type)
     assert tinfo["iterations"] == jinfo["iterations"] == 3
     np.testing.assert_allclose(tinfo["history"], jinfo["history"], rtol=1e-4)
     td = td.numpy()
@@ -146,10 +156,10 @@ def test_nada_loss_value_and_gradient_match_jax(setup, loss_type):
     np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=0, atol=1e-5)
 
 
-def test_dispatch_options_run_the_same_loop(setup):
+def test_dispatch_options_run_the_same_loop(setup, small_run):
     _, torch_side, styles = setup
     resume = _resume()
-    plain, pinfo = _run_torch(torch_side, styles, resume, clip_type="small")
+    plain, pinfo = small_run
     for kw in ({"steps_per_dispatch": 3}, {"split_step": True}):
         got, info = _run_torch(torch_side, styles, resume, clip_type="small",
                                **kw)
@@ -182,13 +192,13 @@ def test_fresh_start_callback_cadence_and_frozen_rows(setup):
     torch.testing.assert_close(d0[:, TRAINABLE], want * 1e-3, rtol=0, atol=0)
 
 
-def test_remat_and_bf16_policies(setup):
+def test_remat_and_bf16_policies(setup, small_run):
     import dataclasses
 
     _, torch_side, styles = setup
     cfg, gp, clips, arc = torch_side
     resume = _resume()
-    plain, pinfo = _run_torch(torch_side, styles, resume, clip_type="small")
+    plain, pinfo = small_run
     # remat recomputes each block in the backward pass: the same numbers
     remat = (dataclasses.replace(cfg, remat=True), gp, clips, arc)
     got, info = _run_torch(remat, styles, resume, clip_type="small")

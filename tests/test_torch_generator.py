@@ -17,6 +17,7 @@ import torch
 from stylemc_tpu.models.stylegan2 import generator as jgen
 from stylemc_torch.convert import params_from_numpy, params_to_numpy
 from stylemc_torch.models.stylegan2 import generator as tgen
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 1e-4, 1e-5
 

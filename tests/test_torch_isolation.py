@@ -29,6 +29,7 @@ from stylemc_torch.ops.kernels import build, modconv
 from stylemc_torch.ops.kernels.upfirdn2d import (
     _canonical_taps, downsample2d_kernel, downsample2d_plain,
     upsample2d_kernel, upsample2d_plain)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "stylemc_torch"
@@ -59,8 +60,9 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     # 49 modules before the e4e slice, which adds 9; the landmarks stack
     # and align_faces add 12
-    # the mapper and DeepLab slice adds 5
-    assert len(_modules()) >= 75
+    # the mapper and DeepLab slice adds 5; GAN evaluation, the warp tools
+    # and LPIPS add 13
+    assert len(_modules()) >= 88
     for m in ("stylemc_torch.ops.kernels.modconv",
               "stylemc_torch.bench.fused_layer_ab",
               "stylemc_torch.bench.timing",
@@ -85,7 +87,15 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
               "stylemc_torch.models.mapper", "stylemc_torch.models.deeplab",
               "stylemc_torch.train.latent_mapper",
               "stylemc_torch.cli.train_latent_mapper",
-              "stylemc_torch.cli.run_deeplab"):
+              "stylemc_torch.cli.run_deeplab",
+              "stylemc_torch.metrics", "stylemc_torch.metrics.scores",
+              "stylemc_torch.metrics.feature_stats",
+              "stylemc_torch.metrics.inception", "stylemc_torch.metrics.ppl",
+              "stylemc_torch.metrics.lec", "stylemc_torch.metrics.metric_main",
+              "stylemc_torch.cli.calc_metrics", "stylemc_torch.models.perceptual",
+              "stylemc_torch.losses.lpips", "stylemc_torch.cv.warp",
+              "stylemc_torch.models.mtcnn.visualize",
+              "stylemc_torch.cli.warp_images"):
         assert m in _modules()
 
 
@@ -125,6 +135,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         main as train_latent_mapper_main)
     from stylemc_torch.serve import BatchEditor
     from stylemc_torch.utils.model_zoo import load_arcface, load_clip_models
+    from stylemc_torch.cli.calc_metrics import main as calc_metrics_main
+    from stylemc_torch.cli.warp_images import main as warp_images_main
+    from stylemc_torch.losses.lpips import init_lpips_params
+    from stylemc_torch.metrics import MetricOptions, calc_metric, compute_ppl
+    from stylemc_torch.metrics.inception import init_inception_params
+    from stylemc_torch.metrics.scores import (
+        kid_from_features, precision_recall_from_features)
 
     cfg = GeneratorConfig(img_resolution=8, channel_base=64, channel_max=8,
                           mapping_layers=1)
@@ -155,16 +172,32 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: init_mapper_params(torch.Generator()),
                  lambda: BatchEditor.from_files(net, mapper="m.pth"),
                  lambda: Segmenter(parser),
-                 lambda: default_segmenter(ckpt)):
+                 lambda: default_segmenter(ckpt),
+                 lambda: init_clip_params(torch.Generator(),
+                                          CLIP_CONFIGS["RN50"]),
+                 lambda: init_inception_params(torch.Generator()),
+                 lambda: init_lpips_params(torch.Generator(), "vgg"),
+                 lambda: compute_ppl(None, None, None, 4, num_samples=1),
+                 lambda: calc_metric("is50k", opts=MetricOptions(
+                     gen_params=params, gen_cfg=cfg)),
+                 lambda: kid_from_features(np.ones((4, 2)), np.ones((4, 2)),
+                                           device="cuda"),
+                 lambda: precision_recall_from_features(
+                     np.ones((4, 2)), np.ones((4, 2)), device="cuda")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    # so do the e4e inversion, alignment and face-parsing CLIs
+    # so do the e4e inversion, alignment, face-parsing, metrics and warp
+    # CLIs
     for cli, args in ((infer_e4e_main, ["--images_dir", str(tmp_path),
                                         "--ckpt", "e4e.pt"]),
                       (align_faces_main, ["--images_dir", str(tmp_path),
                                           "--out_dir", str(tmp_path / "a")]),
                       (run_deeplab_main, ["--dataset_root", str(tmp_path),
-                                          "--ckpt", ckpt])):
+                                          "--ckpt", ckpt]),
+                      (calc_metrics_main, ["--network", net, "--metrics",
+                                           "is50k", "--allow_random_init"]),
+                      (warp_images_main, ["--indir", str(tmp_path),
+                                          "--outdir", str(tmp_path / "w")])):
         r = CliRunner().invoke(cli, args)
         assert isinstance(r.exception, RuntimeError), r.output
         assert "device='cpu'" in str(r.exception)

@@ -52,6 +52,7 @@ from stylemc_torch.models import mobilenet as tmb
 from stylemc_torch.models.mtcnn import detect as tdet
 from stylemc_torch.models.mtcnn import nets as tnets
 from stylemc_torch.ops import image as timage
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the package's __init__ exports a function under this module's name
 jloss = importlib.import_module("stylemc_tpu.losses.landmarks_loss")

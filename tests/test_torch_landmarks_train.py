@@ -34,6 +34,7 @@ from test_torch_find_direction import (  # noqa: F401
     _kw, _resume, cli_files, setup, tiny_arcface_clis)
 from test_torch_landmarks import (  # noqa: F401
     LANDMARKS_COEF, NETS, _close, _gen, landmarkers, weights)
+from torch_threads import one_torch_thread  # noqa: F401
 
 jfd = importlib.import_module("stylemc_tpu.train.find_direction")
 

@@ -36,6 +36,8 @@ from stylemc_torch.train.find_direction import TRAINABLE
 from test_torch_find_direction import (  # noqa: F401
     _kw, cli_files, setup, tiny_arcface_clis)
 from tiny import TINY_ARCFACE_LAYOUT
+from torch_threads import (  # noqa: F401
+    default_torch_threads, one_torch_thread)
 
 jfd = importlib.import_module("stylemc_tpu.train.find_direction")
 jlm = importlib.import_module("stylemc_tpu.train.latent_mapper")
@@ -279,7 +281,8 @@ def test_landmarks_in_graph_run_is_finite(setup):
 
 
 def test_cli_trains_and_generate_fromS_renders_like_jax(
-        cli_files, tiny_arcface_clis, monkeypatch, tmp_path):
+        cli_files, tiny_arcface_clis, monkeypatch, tmp_path,
+        default_torch_threads):
     """train_latent_mapper writes mapper_{prompt}.pth; the port's
     generate_fromS --use_mapper 1 --use_whitelist 1 renders it within ±1 of
     JAX's CLI (mapper_directions_batched and apply_edit_batch) on the same

@@ -18,6 +18,7 @@ from stylemc_tpu.io import load_state_dict_numpy as jax_load_state
 from stylemc_tpu.models import mapper as jmap
 from stylemc_torch import edit as tedit
 from stylemc_torch.models import mapper as tmap
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

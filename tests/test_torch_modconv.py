@@ -28,6 +28,7 @@ from stylemc_tpu.ops.modulated_conv import modulated_conv2d as jmodconv
 from stylemc_tpu.ops.pallas import modconv_pallas as jmc
 from stylemc_torch.bench import fused_layer_ab
 from stylemc_torch.ops.kernels import modconv
+from torch_threads import one_torch_thread  # noqa: F401
 
 GAIN = float(np.sqrt(2))
 

@@ -32,6 +32,7 @@ from stylemc_tpu.ops.pallas import modconv_pallas as jmc
 from stylemc_torch.bench import fused_layer_ab
 from stylemc_torch.ops.kernels import modconv
 from test_torch_modconv import _clamped, _mk, _pallas_bwd_inputs
+from torch_threads import one_torch_thread  # noqa: F401
 
 GAIN = float(np.sqrt(2))
 SMS = 132   # the H100's multiprocessors

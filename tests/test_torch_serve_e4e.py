@@ -30,6 +30,7 @@ from stylemc_torch.models.stylegan2.generator import (
     GeneratorConfig, N_STYLE_CHANNELS, init_generator_params)
 from stylemc_torch.serve import BatchEditor
 from tiny import TINY_E4E_LAYOUT
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG_KW = dict(img_resolution=32, channel_base=1024, channel_max=64,
               mapping_layers=2)

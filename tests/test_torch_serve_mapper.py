@@ -23,6 +23,7 @@ from stylemc_tpu.serve import BatchEditor as JaxEditor
 from stylemc_torch.models import mapper as tmap
 from stylemc_torch.models.stylegan2.generator import GeneratorConfig
 from stylemc_torch.serve import BatchEditor
+from torch_threads import one_torch_thread  # noqa: F401
 
 CFG_KW = dict(img_resolution=32, channel_base=1024, channel_max=64,
               mapping_layers=2)

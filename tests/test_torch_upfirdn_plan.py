@@ -33,6 +33,7 @@ from stylemc_tpu import ops as jops
 from stylemc_tpu.ops.pallas import upfirdn2d_pallas as jup
 from stylemc_torch.ops import setup_filter_np
 from stylemc_torch.ops.kernels import upfirdn2d as up
+from torch_threads import one_torch_thread  # noqa: F401
 
 FN = setup_filter_np([1, 3, 3, 1])
 UP_TAPS = up._canonical_taps(FN, 4.0, False)
