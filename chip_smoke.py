@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive stylemc_torch's serving, training (single prompt, prompt sweeps,
-the landmarks loss, the latent mapper), real-image editing, DeepLab
-feature-blending, GAN evaluation (calc_metrics, LEC), NADA-loss and warp
-paths and its fused-layer A/B on one CUDA card and check them.
+the landmarks loss, the latent mapper, the e4e encoder), real-image
+editing, DeepLab feature-blending, GAN evaluation (calc_metrics, LEC),
+NADA-loss and warp paths and its fused-layer A/B on one CUDA card and
+check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -23,11 +24,13 @@ script exits non-zero:
           [16,3,512²]; the e4e decoder's), the 1024 px plane, two odd
           shapes, a mapper step's chain [2,3,h,h], h = 4..256, and the
           batch-4 chains of LEC's FFHQ-1024 decodes [4,3,h,h], h = 4..512,
-          whose first six are the NADA step's FFHQ-256 chain; B2
-          (downsample2x) at the training step's backward shapes
-          [4,3,2h,2h], the 1024 px plane, two odd shapes and a mapper
-          step's backward shapes [2,3,2h,2h] up to 512²; both on an input 4
-          bytes off alignment; max |err| <= 1e-5;
+          whose first six are the NADA step's FFHQ-256 chain (all eight
+          the e4e coach step's decode chain); B2 (downsample2x) at the
+          training step's backward shapes [4,3,2h,2h], the 1024 px plane,
+          two odd shapes, a mapper step's backward shapes [2,3,2h,2h] up to
+          512², and an e4e coach step's last two, [4,3,512²] and
+          [4,3,1024²]; both on an input 4 bytes off alignment; max |err| <=
+          1e-5;
           kernel, plain, library-call and bound times (device time: CUDA
           events around calls queued behind a sleep kernel), each row with
           its launch plan, the floor and the aim (floor + 1.5 x bound), and
@@ -189,8 +192,8 @@ script exits non-zero:
           one strip per pair, both halves and the warped original
   metrics calc_metrics (fid50k_full, kid50k_full, pr50k3_full, is50k,
           ppl2_wend) as a subprocess on the FFHQ-256 generator with seeded
-          Inception v3 and LPIPS-VGG16 (--allow_random_init), 512 generated
-          images against a directory of 512 PNGs the generator rendered at
+          Inception v3 and LPIPS-VGG16 (--allow_random_init), 256 generated
+          images against a directory of 256 PNGs the generator rendered at
           other latents, batch 16; launches counted per metric; every result
           finite and in range (FID >= 0, precision and recall in [0, 1],
           IS >= 1); card against CPU on 16 of the images: Inception's
@@ -201,6 +204,32 @@ script exits non-zero:
   lec     after the e4e phases: calculate_lec on the seeded e4e_ffhq_encode
           over its 8 photos (2 batches of 4), a seeded W+ direction added
           as the edit and subtracted as its inverse: finite
+  e4e_train  before any phase traces the card: the e4e coach (Ranger,
+          the latent discriminator with lazy R1, progressive stages, ID,
+          L2 and LPIPS) at full width: the FFHQ-1024 generator of the
+          mapper phases as the decoder, a seeded IR-SE-50 Encoder4Editing,
+          the seeded ArcFace and LPIPS-alex, batch 4, fp32, TF32 off,
+          Ranger at 1e-4, w_discriminator_lambda 0.1, d_reg_every 16, r1
+          10, progressive stages from step 4 every 2 steps (the recipe's
+          20 000 / 2 000 compressed), 36 steps over 64 seeded photos
+          through train_e4e's data pipeline: steady ms/step over steps
+          3-36, images/s, peak memory, the stage reached (17), R1 at steps
+          0, 16 and 32, B1 and B2 8 each a step; then 4 steps with
+          train_decoder and 4 with use_w_pool, losses finite.
+          e4e_train_breakdown (after train): one profiled coach step's
+          device time by kernel name and its idle share.
+          e4e_train_parity: one R1 step at stage 7 (batch 2) on the card
+          and on the CPU from the same weights, batch and z: every loss
+          rtol 1e-4, the encoder's gradient relative L2 1e-3, the
+          discriminator after its step and R1 relative L2 1e-5, each beside
+          a TF32 control that must fail it.
+          e4e_train_clis (after lec), as subprocesses: train_e4e on the 8
+          e4e photos from the FFHQ-1024 .npz (--allow_random_init, 4 steps,
+          saving and validating every 2): iteration_2/4, best_model and
+          last .pkl, finite losses; again with --resume_training_from_ckpt
+          iteration_2.pkl to step 4; calc_losses_on_images in both modes,
+          the photos against infer_e4e's reconstructions, card against
+          --device cpu (rtol 1e-5)
   Every card-against-CPU gate of the mapper, DeepLab, metrics and NADA
   phases is a fixed constant, read beside a TF32 control of the card's side
   (TF32 in cuDNN and cuBLAS) that must fail it.
@@ -211,9 +240,10 @@ one-step parity, each CLI, and each e4e path) is driven with every
 kernel's launch count set to 0 just before it and read just after; each
 must show B1 launched once per upper block of each synthesis call (6 at
 FFHQ-256, 8 at FFHQ-1024, 7 for a mapper step's 512 px render of
-FFHQ-1024), B2 once per upper block of each backward pass (6, or 7 for a
-mapper step), and B3/B4/B5 never (the generator runs the unfused layer, as
-the JAX generator does); the e4e encoder, the mapper network, DeepLab,
+FFHQ-1024), B2 once per upper block of each backward pass (6, 7 for a
+mapper step, 8 for an e4e coach step), and B3/B4/B5 never (the generator
+runs the unfused layer, as the JAX generator does, with --train_decoder
+too); the e4e encoder and its discriminator, the mapper network, DeepLab,
 Inception, LPIPS, CLIP and the landmark nets launch none of them. Each
 metric's renders are counted apart (PPL renders both ends of each pair:
 two synthesis calls a batch), and so are LEC's decodes (FFHQ-1024).
@@ -268,7 +298,12 @@ DOWN_SHAPES = TRAIN_DOWN_SHAPES + [(1, 3, 1024, 1024), (2, 5, 6, 10),
 MAPPER_UP_SHAPES = [(2, 3, h, h) for h in (4, 8, 16, 32, 64, 128, 256)]
 MAPPER_DOWN_SHAPES = [(2, 3, 2 * h, 2 * h) for h in (4, 8, 16, 32, 64, 128,
                                                      256)]
-# B1's inputs in one LEC decode (FFHQ-1024, batch 4) and, the first six,
+# B2's inputs in one e4e coach step's backward (FFHQ-1024, batch 4): the
+# training step's six, then [4,3,512²] and [4,3,1024²]
+E4E_DOWN_SHAPES = [(4, 3, 2 * h, 2 * h) for h in (4, 8, 16, 32, 64, 128,
+                                                  256, 512)]
+# B1's inputs in one LEC decode (FFHQ-1024, batch 4), which are the e4e
+# coach step's decode chain too, and, the first six,
 # in the NADA step's synthesis call (FFHQ-256, batch 4); B2's in the NADA
 # step's backward are TRAIN_DOWN_SHAPES
 LEC_UP_SHAPES = [(4, 3, h, h) for h in (4, 8, 16, 32, 64, 128, 256, 512)]
@@ -528,7 +563,8 @@ def phase_kernel(torch):
             upsample_bound, library_upsample, up_taps,
             lambda s: upsample_plan(s[0] * s[1], s[2], s[3]), floor_ms),
         "downsample2x": _kernel_rows(
-            torch, "downsample2x", DOWN_SHAPES + MAPPER_DOWN_SHAPES,
+            torch, "downsample2x",
+            DOWN_SHAPES + MAPPER_DOWN_SHAPES + E4E_DOWN_SHAPES[6:],
             downsample2d_kernel,
             launch_downsample, downsample2d_plain, down_taps,
             downsample_bound, library_downsample, down_taps[::-1],
@@ -1556,6 +1592,23 @@ E4E_CODE_REL_L2 = 1e-4
 E4E_PROMPT = "smiling face"
 
 
+def write_photos(directory, n, seed):
+    """`n` seeded 256² PNG photos photo<i>.png in `directory`: each a
+    smooth random field, bicubic from 8x8, plus pixel noise."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(directory)
+    rs = np.random.RandomState(seed)
+    for i in range(n):
+        low = Image.fromarray((rs.rand(8, 8, 3) * 255).astype(np.uint8))
+        img = np.asarray(low.resize((256, 256), Image.BICUBIC), np.float32)
+        img = np.clip(img + rs.randn(256, 256, 3) * 8, 0, 255)
+        Image.fromarray(img.astype(np.uint8), "RGB").save(
+            os.path.join(directory, f"photo{i}.png"))
+    return directory
+
+
 def make_e4e(torch, tmp):
     """e4e_ffhq_encode at full width, with random weights from seeds,
     written by the port's own export: the IR-SE-50 Encoder4Editing (24
@@ -1565,7 +1618,6 @@ def make_e4e(torch, tmp):
     latent_avg is the mean w of 4096 seeded z. Eight seeded 256² PNG
     photos and a seeded direction npz beside them."""
     import numpy as np
-    from PIL import Image
 
     from stylemc_torch.io.export import save_e4e_pt, save_rosinality_pt
     from stylemc_torch.io.rosinality import config_for_rosinality
@@ -1588,16 +1640,8 @@ def make_e4e(torch, tmp):
     ckpt = save_e4e_pt(os.path.join(tmp, "e4e_ffhq_encode.pt"), enc, dcfg,
                        dec, dec["mapping"]["w_avg"])
     decoder = save_rosinality_pt(os.path.join(tmp, "ffhq1024.pt"), dcfg, dec)
-    photos = os.path.join(tmp, "photos")
-    os.makedirs(photos)
-    rs = np.random.RandomState(E4E_SEEDS["photos"])
-    for i in range(E4E_PHOTOS):
-        # a smooth random field, bicubic from 8x8, plus pixel noise
-        low = Image.fromarray((rs.rand(8, 8, 3) * 255).astype(np.uint8))
-        img = np.asarray(low.resize((256, 256), Image.BICUBIC), np.float32)
-        img = np.clip(img + rs.randn(256, 256, 3) * 8, 0, 255)
-        Image.fromarray(img.astype(np.uint8), "RGB").save(
-            os.path.join(photos, f"photo{i}.png"))
+    photos = write_photos(os.path.join(tmp, "photos"), E4E_PHOTOS,
+                          E4E_SEEDS["photos"])
     d = np.zeros((1, 26, 512), np.float32)
     rs = np.random.RandomState(E4E_SEEDS["direction"])
     for row in S_TRAINABLE_SPACE_CHANNELS:
@@ -3603,10 +3647,12 @@ def phase_mapper_serve(torch, net, direction, tmp, smi, paths):
 # ------------------------------- GAN evaluation, LEC, NADA and the warp tools
 
 METRICS = "fid50k_full,kid50k_full,pr50k3_full,is50k,ppl2_wend"
-METRICS_NUM_GEN = 512
+# 256 generated images against 256 stand-in PNGs (512 each until the e4e
+# training phases took the script's time)
+METRICS_NUM_GEN = 256
 METRICS_BATCH = 16
-METRICS_DATA_SEED = 1000   # the stand-in dataset's z: seeds 1000..1511
-METRICS_DATA = 512
+METRICS_DATA_SEED = 1000   # the stand-in dataset's z: seeds 1000..1255
+METRICS_DATA = 256
 METRICS_PARITY_IMAGES = 16
 # card against CPU, fixed, each beside a TF32 control that must fail it
 INCEPTION_REL_L2 = 1e-4
@@ -3686,8 +3732,8 @@ def make_metrics_data(torch, cfg, params, outdir):
 
 def phase_metrics(torch, net, tmp, smi, paths):
     """calc_metrics at full width: the FFHQ-256 generator, seeded Inception
-    v3 (both variants at 299) and LPIPS-VGG16, 512 generated images against
-    a directory of 512 PNGs that the generator rendered at other latents.
+    v3 (both variants at 299) and LPIPS-VGG16, 256 generated images against
+    a directory of 256 PNGs that the generator rendered at other latents.
     The CLI runs as a subprocess with the launches counted per metric; the
     results are finite and in range. Card against CPU on 16 of the images:
     Inception's features (both variants) and LPIPS-VGG distances, each
@@ -4006,6 +4052,383 @@ def phase_warp(tmp, files, paths):
         raise AssertionError(f"warp checks failed: {checks}")
 
 
+# ---------------------------------------------------------- e4e training
+
+# the coach at full width: the FFHQ-1024 decoder (make_ffhq1024), a seeded
+# IR-SE-50 Encoder4Editing, the seeded ArcFace and LPIPS-alex; the e4e
+# recipe's options with its progressive schedule compressed (20 000 / 2 000
+# steps in the recipe) so that the stages advance inside the run, and R1
+# at steps 0, 16 and 32
+E4E_TRAIN_PHOTOS = 64
+E4E_TRAIN_STEPS = 36
+E4E_TRAIN_STEADY_FROM = 2       # steady ms/step over steps 3-36
+E4E_TRAIN_SIDE_STEPS = 4        # the train_decoder and use_w_pool runs
+E4E_TRAIN_OPTS = dict(batch_size=4, stylegan_size=E4E_SIZE,
+                      w_discriminator_lambda=0.1, d_reg_every=16, r1=10.0,
+                      progressive_start=4, progressive_step_every=2)
+E4E_TRAIN_SEEDS = {"photos": 21, "lpips": 1, "encoder": 0}
+# one R1 step at progressive stage 7 (global step 16), batch 2
+E4E_PARITY_STEP = 16
+E4E_PARITY_BATCH = 2
+E4E_PARITY_LOSS_RTOL = 1e-4
+E4E_PARITY_GRAD_REL_L2 = 1e-3
+E4E_PARITY_D_REL_L2 = 1e-5
+# the card's fp32 encoder backward against the CPU's float64: twice the
+# CPU's own fp32 reading (1.45e-3 on the delta-norm term's VJP)
+E4E_PARITY_VJP_FP64_REL_L2 = 3e-3
+E4E_CLI_STEPS = 4
+E4E_LOSSES_RTOL = 1e-5
+
+
+def e4e_train_models(torch, net1024):
+    """The coach's networks on the CPU, from seeds: the FFHQ-1024 decoder
+    from its .npz, the IR-SE-50 Encoder4Editing as train_e4e draws it, the
+    ArcFace of `perception_models`, LPIPS-alex as train_e4e draws it."""
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.losses.lpips import init_lpips_params
+    from stylemc_torch.models.arcface import init_backbone_params
+    from stylemc_torch.models.e4e.encoders import (init_encoder_params,
+                                                   style_count)
+    from stylemc_torch.models.e4e.psp import PSP, PSPConfig
+
+    cfg, dec = load_generator(net1024, device="cpu")
+    enc = init_encoder_params(torch.Generator().manual_seed(
+        E4E_TRAIN_SEEDS["encoder"]), E4E_SIZE, device="cpu")
+    psp = PSP(cfg=PSPConfig(stylegan_size=E4E_SIZE), encoder_params=enc,
+              decoder_cfg=cfg, decoder_params=dec,
+              latent_avg=dec["mapping"]["w_avg"][None].repeat(
+                  style_count(E4E_SIZE), 1))
+    perception = {
+        "lpips": init_lpips_params(torch.Generator().manual_seed(
+            E4E_TRAIN_SEEDS["lpips"]), "alex", device="cpu"),
+        "arcface": init_backbone_params(torch.Generator().manual_seed(
+            ARCFACE_SEED), device="cpu")}
+    return cfg, psp, perception
+
+
+def _finite(d):
+    import math
+
+    return all(math.isfinite(v) for v in d.values())
+
+
+def phase_e4e_train(torch, net1024, tmp, smi, paths):
+    """The e4e coach at full width for E4E_TRAIN_STEPS steps over 64
+    seeded photos through train_e4e's data pipeline (batch_iterator with
+    the flip, the background prefetcher): steady ms/step, images/s, peak
+    memory, the stage reached, B1 and B2 per step; then 4 steps with train_decoder and 4 with use_w_pool (the JAX
+    package's unfused path). It runs before any phase traces the card
+    with the profiler (its profiled step is e4e_train_breakdown's)."""
+    from stylemc_torch.bench.timing import card_state
+    from stylemc_torch.data.images import ImagesDataset, batch_iterator
+    from stylemc_torch.train.coach import Coach, CoachOptions
+
+    photos = write_photos(os.path.join(tmp, "e4e_train_photos"),
+                          E4E_TRAIN_PHOTOS, E4E_TRAIN_SEEDS["photos"])
+    t0 = time.perf_counter()
+    cfg, psp, perception = e4e_train_models(torch, net1024)
+    build_s = time.perf_counter() - t0
+
+    def coach(steps, **kw):
+        opts = CoachOptions(**{**E4E_TRAIN_OPTS, "max_steps": steps, **kw})
+        data = batch_iterator(ImagesDataset(photos, size=256),
+                              opts.batch_size, shuffle=True, flip=True)
+        return Coach(opts, psp, perception, data, device="cuda")
+
+    c = coach(E4E_TRAIN_STEPS)
+    losses, stamps = [], []
+
+    def callback(step, loss_dict):
+        stamps.append(time.perf_counter())
+        losses.append(loss_dict)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    states = [card_state()]
+    t0 = time.perf_counter()
+    _, launches = count_launches(lambda: c.train(callback=callback))
+    wall = time.perf_counter() - t0
+    states.append(card_state())
+    peak = torch.cuda.max_memory_allocated()
+    record_launches(paths, cfg, "e4e_train", launches, E4E_TRAIN_STEPS,
+                    E4E_TRAIN_STEPS)
+    steady = (stamps[-1] - stamps[E4E_TRAIN_STEADY_FROM - 1]) \
+        / (E4E_TRAIN_STEPS - E4E_TRAIN_STEADY_FROM) * 1e3
+    stage = c.progressive_stage()
+    r1_steps = [i for i, d in enumerate(losses)
+                if "discriminator_r1_loss" in d]
+    checks = {"steps": len(losses) == E4E_TRAIN_STEPS,
+              "losses_finite": all(_finite(d) for d in losses),
+              "r1_steps": r1_steps == [0, 16, 32],
+              # the last stage (17 at FFHQ-1024) by step 36
+              "stage_advanced": stage == len(c.opts.progressive_steps) - 1,
+              "per_step": {k: launches[k] / E4E_TRAIN_STEPS for k in
+                           UPFIRDN_KERNELS} == {"upsample2x": 8,
+                                                "downsample2x": 8}}
+    emit({"phase": "e4e_train", "card": smi, "steps": E4E_TRAIN_STEPS,
+          "batch": c.opts.batch_size, "photos": E4E_TRAIN_PHOTOS,
+          "precision": "fp32", "tf32": False,
+          "options": E4E_TRAIN_OPTS, "build_s": build_s, "wall_s": wall,
+          "first_step_s": stamps[0] - t0,
+          "steady_ms_per_step": steady,
+          "images_per_s": c.opts.batch_size * 1e3 / steady,
+          "peak_mem_bytes": peak, "stage_reached": stage,
+          "progressive_steps": c.opts.progressive_steps,
+          "r1_steps": r1_steps, "launches": launches,
+          "launches_per_step": {k: launches[k] / E4E_TRAIN_STEPS
+                                for k in UPFIRDN_KERNELS},
+          "loss_first_last": [losses[0], losses[-1]],
+          "card_state": states, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"e4e_train checks failed: {checks}")
+
+    del c
+    torch.cuda.empty_cache()
+
+    for tag, kw in (("train_decoder", {"train_decoder": True}),
+                    ("w_pool", {"use_w_pool": True})):
+        side = coach(E4E_TRAIN_SIDE_STEPS, **kw)
+        stamps, losses = [], []
+        torch.cuda.reset_peak_memory_stats()
+        _, launches = count_launches(lambda: side.train(callback=callback))
+        record_launches(paths, cfg, f"e4e_train_{tag}", launches,
+                        E4E_TRAIN_SIDE_STEPS, E4E_TRAIN_SIDE_STEPS)
+        ok = len(losses) == E4E_TRAIN_SIDE_STEPS and \
+            all(_finite(d) for d in losses)
+        emit({"phase": f"e4e_train_{tag}", "card": smi,
+              "steps": E4E_TRAIN_SIDE_STEPS,
+              "ms_per_step_after_first": (stamps[-1] - stamps[0])
+              / (len(stamps) - 1) * 1e3,
+              "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+              "loss_last": losses[-1], "losses_finite": ok,
+              "launches": launches})
+        if not ok:
+            raise AssertionError(f"e4e_train_{tag}: {losses}")
+        del side
+        torch.cuda.empty_cache()
+    return (cfg, psp, perception), photos
+
+
+def phase_e4e_train_breakdown(torch, models, photos, smi):
+    """Where one full-width coach step's device time goes: a fresh coach
+    at global step 5 (stage 2, no R1), one untraced step, then one step
+    profiled by kernel name, and its idle share."""
+    from stylemc_torch.data.images import ImagesDataset, batch_iterator
+    from stylemc_torch.train.coach import Coach, CoachOptions
+
+    _, psp, perception = models
+    opts = CoachOptions(**E4E_TRAIN_OPTS)
+    data = batch_iterator(ImagesDataset(photos, size=256), opts.batch_size,
+                          shuffle=True, flip=True)
+    c = Coach(opts, psp, perception, data, device="cuda")
+    c.global_step = 5
+    x, y = data()
+    emit({"phase": "e4e_train_breakdown", "card": smi,
+          "stage": c.progressive_stage(),
+          **device_breakdown(torch, lambda: c.train_step(x, y), top=15)})
+
+
+def phase_e4e_train_parity(torch, models, photos, smi, paths):
+    """One full-width coach step on the card and on the CPU from the same
+    weights, batch and z: an R1 step (global step 16) at progressive stage
+    7, batch 2: the discriminator's step and R1 (train_discriminator), then
+    the encoder's loss against the updated discriminator and its gradients
+    (train_step before its Ranger update). Gates, each beside a TF32
+    control of the card's side that must fail it: every loss rtol 1e-4;
+    the discriminator after its step and R1 relative L2 1e-5; the loss's
+    gradient at the codes (the decoder's, the perception models' and the
+    discriminator's half of the step, as train_parity's Δs) relative L2
+    1e-3; the encoder's backward, the card's fp32 VJP of the CPU's codes
+    gradient against the CPU's float64 one, relative L2 3e-3. Recorded
+    beside them, not gated: the step's encoder gradient card against CPU,
+    and the CPU's fp32 VJP against float64 (the seeded encoder's weight
+    gradient sits ~1.5e-3 from float64 in fp32 on either device: a 1e-7
+    change of its input moves it 1.6e-5, so fp32's ~3e-6 forward noise
+    moves it ~1e-3)."""
+    import numpy as np
+
+    from stylemc_torch.data.images import ImagesDataset
+    from stylemc_torch.train.coach import Coach, CoachOptions
+    from stylemc_torch.train.ranger import tree_leaves, tree_map
+
+    cfg, psp, perception = models
+    ds = ImagesDataset(photos, size=256)
+    x = np.stack([ds[i][0] for i in range(E4E_PARITY_BATCH)])
+    opts = CoachOptions(**{**E4E_TRAIN_OPTS, "batch_size": E4E_PARITY_BATCH})
+
+    def flat(ts):
+        return torch.cat([t.detach().reshape(-1) for t in ts]).cpu()
+
+    def step(device, tf32=False):
+        # the coach turns TF32 off as it is built: the control turns it on
+        # after
+        c = Coach(opts, psp, perception, lambda: None, device=device)
+        c.global_step = E4E_PARITY_STEP
+        stage = c.progressive_stage()
+        xt = c._to_device(x)
+        with tf32_control(torch) if tf32 else contextlib.nullcontext():
+            d_dict = c.train_discriminator(xt)
+            leaves = tree_leaves(c._trainable())
+            loss, (enc_dict, _, codes) = c._calc_loss(
+                c._trainable(), xt, xt, stage, c.discriminator_params)
+            g_codes, *g = torch.autograd.grad(
+                loss, [codes] + leaves, allow_unused=True,
+                materialize_grads=True)
+        out = {k: float(v.detach()) for k, v in {**d_dict,
+                                                  **enc_dict}.items()}
+        return (out, g_codes.detach().cpu(), flat(g),
+                flat(tree_leaves(c.discriminator_params)), stage)
+
+    def encoder_vjp(device, dtype, cot, tf32=False):
+        """The encoder's backward alone: the VJP of its raw codes (stage 7)
+        with the cotangent `cot`, in `dtype`."""
+        c = Coach(opts, psp, perception, lambda: None, device=device)
+        tree = tree_map(lambda v: v.detach().to(dtype).requires_grad_(True),
+                        c.psp.encoder_params)
+        with tf32_control(torch) if tf32 else contextlib.nullcontext():
+            codes = c._encoder_forward(
+                tree, torch.from_numpy(x).to(device, dtype), stage)
+            g = torch.autograd.grad(codes, tree_leaves(tree),
+                                    cot.to(device, dtype),
+                                    allow_unused=True, materialize_grads=True)
+        return flat(g).double()
+
+    (card, gc_card, g, d, stage), launches = count_launches(
+        lambda: step("cuda"))
+    record_launches(paths, cfg, "e4e_train_parity", launches, 1, 1)
+    card_t, gc_t, g_t, d_t, _ = step("cuda", tf32=True)
+    t0 = time.perf_counter()
+    (cpu, gc_cpu, g_c, d_c, _), cpu_launches = count_launches(
+        lambda: step("cpu"))
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vjp64 = encoder_vjp("cpu", torch.float64, gc_cpu)
+    vjp_cpu = encoder_vjp("cpu", torch.float32, gc_cpu)
+    fp64_s = time.perf_counter() - t0
+    vjp_card = encoder_vjp("cuda", torch.float32, gc_cpu)
+    vjp_t = encoder_vjp("cuda", torch.float32, gc_cpu, tf32=True)
+
+    def loss_rel(a):
+        return max(abs(a[k] - cpu[k]) / max(abs(cpu[k]), 1e-30) for k in cpu)
+
+    readings = {
+        "loss_rel": (loss_rel(card), loss_rel(card_t),
+                     E4E_PARITY_LOSS_RTOL),
+        "discriminator_rel_l2": (_rel(d, d_c), _rel(d_t, d_c),
+                                 E4E_PARITY_D_REL_L2),
+        "codes_grad_rel_l2": (_rel(gc_card, gc_cpu), _rel(gc_t, gc_cpu),
+                              E4E_PARITY_GRAD_REL_L2),
+        "encoder_vjp_rel_l2_to_fp64": (_rel(vjp_card, vjp64),
+                                       _rel(vjp_t, vjp64),
+                                       E4E_PARITY_VJP_FP64_REL_L2)}
+    emit({"phase": "e4e_train_parity", "card": smi, "stage": stage,
+          "global_step": E4E_PARITY_STEP, "batch": E4E_PARITY_BATCH,
+          "losses": card, "cpu_losses": cpu, "tf32_losses": card_t,
+          "loss_rel_by_key": {k: abs(card[k] - cpu[k])
+                              / max(abs(cpu[k]), 1e-30) for k in cpu},
+          "r1_step": "discriminator_r1_loss" in card,
+          "gates": {k: {"value": v, "tf32_control": t, "gate": gate}
+                    for k, (v, t, gate) in readings.items()},
+          "encoder_grad_rel_l2_card_vs_cpu": _rel(g, g_c),
+          "encoder_grad_rel_l2_tf32_vs_cpu": _rel(g_t, g_c),
+          "encoder_vjp_rel_l2_to_fp64_cpu_fp32": _rel(vjp_cpu, vjp64),
+          "encoder_grad_norm": float(g_c.norm()),
+          "codes_grad_norm": float(gc_cpu.norm()), "cpu_s": cpu_s,
+          "vjp_cpu_s": fp64_s, "launches": launches,
+          "cpu_launches": cpu_launches})
+    if any(cpu_launches.values()):
+        raise AssertionError("the CPU step launched a CUDA kernel")
+    if "discriminator_r1_loss" not in card or not 1 <= stage <= 17:
+        raise AssertionError(f"not an R1 step at stage 1-17: {stage}")
+    for name, reading in readings.items():
+        _gate(name, *reading, {})
+
+
+def _printed_losses(out):
+    """{step: {key: value}} of train_e4e's 'step N: k=v, ...' lines."""
+    steps = {}
+    for line in out.splitlines():
+        if line.startswith("step ") and ": " in line:
+            head, rest = line.split(": ", 1)
+            steps[int(head.split()[1])] = {
+                kv.split("=")[0]: float(kv.split("=")[1])
+                for kv in rest.split(", ")}
+    return steps
+
+
+def phase_e4e_train_clis(cfg, net1024, e4e_photos, inversions, tmp, paths):
+    """As subprocesses: train_e4e on the e4e phase's 8 photos (train and
+    test) from the FFHQ-1024 .npz, --allow_random_init, 4 steps, saving
+    and validating every 2 (4 batches of 2 a validation); then
+    --resume_training_from_ckpt iteration_2.pkl to step 4. Then
+    calc_losses_on_images in both modes, the photos against infer_e4e's
+    reconstructions, on the card and with --device cpu: rtol 1e-5."""
+    import json
+
+    import numpy as np
+
+    from stylemc_torch.io.numpy_pickle import load_numpy_pickle
+
+    args = ["--source_root", e4e_photos, "--test_root", e4e_photos,
+            "--stylegan_weights", net1024, "--stylegan_size", str(E4E_SIZE),
+            "--allow_random_init", "--max_steps", str(E4E_CLI_STEPS),
+            "--save_interval", "2", "--val_interval", "2",
+            "--board_interval", "1"]
+    first = os.path.join(tmp, "e4e_train_cli")
+    # 4 steps and two validations of 4 batches
+    secs, out = run_cli(paths, cfg, "e4e_cli_train_e4e", "train_e4e", 12, 4,
+                        "--exp_dir", first, *args)
+    ckpts = os.path.join(first, "checkpoints")
+    resumed = os.path.join(tmp, "e4e_train_cli_resumed")
+    secs_r, out_r = run_cli(
+        paths, cfg, "e4e_cli_train_e4e_resume", "train_e4e", 6, 2,
+        "--exp_dir", resumed, "--resume_training_from_ckpt",
+        os.path.join(ckpts, "iteration_2.pkl"), *args)
+    printed, printed_r = _printed_losses(out), _printed_losses(out_r)
+    last = load_numpy_pickle(os.path.join(resumed, "checkpoints",
+                                          "last.pkl"))
+    files = sorted(os.listdir(ckpts))
+    checks = {
+        "checkpoints": files == ["best_model.pkl", "iteration_2.pkl",
+                                 "iteration_4.pkl", "last.pkl"],
+        "printed_steps": sorted(printed) == [1, 2, 3, 4],
+        "losses_finite": all(_finite(d) for d in printed.values())
+        and all(_finite(d) for d in printed_r.values()),
+        "resumed_steps": sorted(printed_r) == [3, 4],
+        "resumed_to_4": last["global_step"] == 4,
+        "finished": "OMG, finished training!" in out}
+
+    losses = {}
+    for mode in ("lpips", "l2"):
+        largs = ["--mode", mode, "--data_path", inversions, "--gt_path",
+                 e4e_photos, "--batch", "4", "--allow_random_init"]
+        _, card_out = run_cli(paths, cfg, f"e4e_cli_losses_{mode}",
+                              "calc_losses_on_images", 0, 0, *largs)
+        _, cpu_out = run_cli(paths, cfg, f"e4e_cli_losses_{mode}_cpu",
+                             "calc_losses_on_images", 0, 0, *largs,
+                             "--device", "cpu")
+        card = json.loads(card_out.strip().splitlines()[-2])
+        cpu = json.loads(cpu_out.strip().splitlines()[-2])
+        losses[mode] = {"card": card, "cpu": cpu,
+                        "mean_rel": abs(card["mean"] - cpu["mean"])
+                        / abs(cpu["mean"])}
+        checks[f"{mode}_n"] = card["n"] == cpu["n"] == \
+            (2 if mode == "lpips" else E4E_PHOTOS)
+        checks[f"{mode}_agree"] = bool(
+            np.isclose(card["mean"], cpu["mean"], rtol=E4E_LOSSES_RTOL, atol=0)
+            and np.isclose(card["std"], cpu["std"], rtol=0,
+                           atol=E4E_LOSSES_RTOL * cpu["mean"]))
+    emit({"phase": "e4e_train_clis", "seconds": [secs, secs_r],
+          "checkpoints": files, "printed": printed, "printed_resumed":
+          printed_r, "losses": losses,
+          "launches": {k: v["launches"] for k, v in paths.items()
+                       if k.startswith("e4e_cli_train_e4e")
+                       or k.startswith("e4e_cli_losses")},
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"e4e_train_clis checks failed: {checks}")
+
+
 MODCONV_REPLACES = {
     "modconv_fwd": ("modconv_pallas.py:88", "_fwd_kernel/_fwd_call"),
     "modconv_bwd_data": ("modconv_pallas.py:170",
@@ -4114,8 +4537,17 @@ def main() -> int:
     phase_ab(torch, smi, paths)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         _, net, direction = make_network(torch, tmp)
-        # training first: its timed run comes before any profiler trace
+        cfg1024, net1024 = make_ffhq1024(torch, tmp, MAPPER_NET_SEEDS[0])
+        # the training paths first: their timed runs come before any
+        # profiler trace
+        e4e_models, e4e_train_photos = phase_e4e_train(torch, net1024, tmp,
+                                                       smi, paths)
         editor, models = phase_train(torch, net, smi, paths)
+        phase_e4e_train_breakdown(torch, e4e_models, e4e_train_photos, smi)
+        phase_e4e_train_parity(torch, e4e_models, e4e_train_photos, smi,
+                               paths)
+        del e4e_models
+        torch.cuda.empty_cache()
         phase_train_parity(torch, net, editor, direction, models, paths)
         phase_nada(torch, net, editor, models, smi, paths)
         # prompt sweeps and the landmarks stack, on the train phase's
@@ -4132,7 +4564,6 @@ def main() -> int:
         phase_sweep_clis(models[0], net, styles, tmp, landmark_files, paths)
         # the latent mapper and the DeepLab face parser, on the train
         # phase's perception models
-        cfg1024, net1024 = make_ffhq1024(torch, tmp, MAPPER_NET_SEEDS[0])
         _, net1024b = make_ffhq1024(torch, tmp, MAPPER_NET_SEEDS[1])
         _, mapper_styles = phase_mapper(torch, models, net1024, smi, paths)
         phase_mapper_parity(torch, models, net1024, smi, paths)
@@ -4153,6 +4584,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         ckpt, photos = phase_e4e(torch, tmp, smi, paths, landmark_files)
         phase_lec(torch, ckpt, photos, paths)
+        phase_e4e_train_clis(cfg1024, net1024, photos, os.path.join(
+            tmp, "e4e_inversion", "inversions"), tmp, paths)
 
     timed = {"upsample2x": CHAIN_SHAPES, "downsample2x": TRAIN_DOWN_SHAPES}
     sources = {"upsample2x": ("upfirdn2d_pallas.py:132", "_upsample2x_core"),
@@ -4209,6 +4642,13 @@ def main() -> int:
             MAPPER_DOWN_SHAPES
         step_rows = [r for r in rows if tuple(r["shape"]) in step]
         kernels[-1].update({f"mapper_b2_{k}": sum(r[k] for r in step_rows)
+                            for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                      "library_ms")})
+        # one e4e coach step (batch 4, FFHQ-1024): its decode for B1, its
+        # backward to the codes for B2
+        step = LEC_UP_SHAPES if name == "upsample2x" else E4E_DOWN_SHAPES
+        step_rows = [r for r in rows if tuple(r["shape"]) in step]
+        kernels[-1].update({f"e4e_train_b4_{k}": sum(r[k] for r in step_rows)
                             for k in ("kernel_ms", "plain_ms", "bound_ms",
                                       "library_ms")})
         if name == "upsample2x":

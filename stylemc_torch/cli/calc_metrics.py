@@ -21,37 +21,15 @@ from __future__ import annotations
 
 import json
 import os
-import pickle
 
 import click
 import numpy as np
 import torch
 
+from ..io.numpy_pickle import load_numpy_pickle as load_lpips_pickle
+
 INCEPTION_SEED = 0
 LPIPS_SEED = 1
-
-
-class _NumpyUnpickler(pickle.Unpickler):
-    """Unpickles dicts, lists and numpy arrays only: a weights file runs no
-    code."""
-
-    _ALLOWED = {("numpy", "ndarray"), ("numpy", "dtype"),
-                ("numpy.core.multiarray", "_reconstruct"),
-                ("numpy._core.multiarray", "_reconstruct"),
-                ("numpy.core.multiarray", "scalar"),
-                ("numpy._core.multiarray", "scalar"),
-                ("collections", "OrderedDict")}
-
-    def find_class(self, module, name):
-        if (module, name) in self._ALLOWED:
-            return super().find_class(module, name)
-        raise pickle.UnpicklingError(f"{module}.{name} is not allowed in a "
-                                     "weights pickle")
-
-
-def load_lpips_pickle(path: str):
-    with open(path, "rb") as f:
-        return _NumpyUnpickler(f).load()
 
 
 @click.command()

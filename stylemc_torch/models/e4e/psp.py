@@ -1,7 +1,8 @@
 """pSp wrapper: encoder + StyleGAN2 decoder + latent_avg offset
 (counterpart of `stylemc_tpu/models/e4e/psp.py`).
 
-Encode to W+ codes, add latent_avg when the model has one, optionally
+Encode to W+ codes, add latent_avg when the model has one (and
+start_from_latent_avg, the default), optionally
 inject or zero rows (latent_mask), decode with per-row w (the mapping
 network skipped) and adaptive-pool the output to 256².
 """
@@ -30,6 +31,7 @@ ENCODERS = {"Encoder4Editing": encoder4editing,
 class PSPConfig:
     stylegan_size: int = 1024
     encoder_type: str = "Encoder4Editing"
+    start_from_latent_avg: bool = True
     # encoder body [(in_c, depth, stride), ...]; None = IR-SE-50
     encoder_layout: Optional[Any] = None
 
@@ -52,7 +54,7 @@ class PSP:
             kw["progressive_stage"] = progressive_stage
         codes = ENCODERS[self.cfg.encoder_type](
             self.encoder_params, x, self.cfg.stylegan_size, **kw)
-        if self.latent_avg is not None:
+        if self.cfg.start_from_latent_avg and self.latent_avg is not None:
             codes = codes + self.latent_avg[None].to(codes.dtype)
         return codes
 

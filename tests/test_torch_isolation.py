@@ -61,8 +61,8 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
     # 49 modules before the e4e slice, which adds 9; the landmarks stack
     # and align_faces add 12
     # the mapper and DeepLab slice adds 5; GAN evaluation, the warp tools
-    # and LPIPS add 13
-    assert len(_modules()) >= 88
+    # and LPIPS add 13; e4e training adds 10
+    assert len(_modules()) >= 98
     for m in ("stylemc_torch.ops.kernels.modconv",
               "stylemc_torch.bench.fused_layer_ab",
               "stylemc_torch.bench.timing",
@@ -95,7 +95,14 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
               "stylemc_torch.cli.calc_metrics", "stylemc_torch.models.perceptual",
               "stylemc_torch.losses.lpips", "stylemc_torch.cv.warp",
               "stylemc_torch.models.mtcnn.visualize",
-              "stylemc_torch.cli.warp_images"):
+              "stylemc_torch.cli.warp_images",
+              "stylemc_torch.train.ranger", "stylemc_torch.train.coach",
+              "stylemc_torch.losses.w_norm", "stylemc_torch.losses.moco",
+              "stylemc_torch.models.resnet",
+              "stylemc_torch.models.e4e.discriminator",
+              "stylemc_torch.data.configs", "stylemc_torch.io.numpy_pickle",
+              "stylemc_torch.cli.train_e4e",
+              "stylemc_torch.cli.calc_losses_on_images"):
         assert m in _modules()
 
 
@@ -142,6 +149,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from stylemc_torch.metrics.inception import init_inception_params
     from stylemc_torch.metrics.scores import (
         kid_from_features, precision_recall_from_features)
+    from stylemc_torch.cli.calc_losses_on_images import (
+        main as calc_losses_main)
+    from stylemc_torch.cli.train_e4e import main as train_e4e_main
+    from stylemc_torch.models.e4e.discriminator import (
+        init_discriminator_params)
+    from stylemc_torch.models.e4e.psp import PSP, PSPConfig
+    from stylemc_torch.models.resnet import init_resnet50_params
+    from stylemc_torch.train.coach import Coach, CoachOptions
 
     cfg = GeneratorConfig(img_resolution=8, channel_base=64, channel_max=8,
                           mapping_layers=1)
@@ -183,11 +198,16 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                  lambda: kid_from_features(np.ones((4, 2)), np.ones((4, 2)),
                                            device="cuda"),
                  lambda: precision_recall_from_features(
-                     np.ones((4, 2)), np.ones((4, 2)), device="cuda")):
+                     np.ones((4, 2)), np.ones((4, 2)), device="cuda"),
+                 lambda: Coach(CoachOptions(stylegan_size=8),
+                               PSP(PSPConfig(8), {}, cfg, params), {},
+                               lambda: None),
+                 lambda: init_discriminator_params(torch.Generator()),
+                 lambda: init_resnet50_params(torch.Generator())):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    # so do the e4e inversion, alignment, face-parsing, metrics and warp
-    # CLIs
+    # so do the e4e inversion, alignment, face-parsing, metrics, warp, e4e
+    # training and image-loss CLIs
     for cli, args in ((infer_e4e_main, ["--images_dir", str(tmp_path),
                                         "--ckpt", "e4e.pt"]),
                       (align_faces_main, ["--images_dir", str(tmp_path),
@@ -197,7 +217,14 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                       (calc_metrics_main, ["--network", net, "--metrics",
                                            "is50k", "--allow_random_init"]),
                       (warp_images_main, ["--indir", str(tmp_path),
-                                          "--outdir", str(tmp_path / "w")])):
+                                          "--outdir", str(tmp_path / "w")]),
+                      (train_e4e_main, ["--exp_dir", str(tmp_path / "e"),
+                                        "--source_root", str(tmp_path),
+                                        "--stylegan_weights", net,
+                                        "--allow_random_init"]),
+                      (calc_losses_main, ["--data_path", str(tmp_path),
+                                          "--gt_path", str(tmp_path),
+                                          "--allow_random_init"])):
         r = CliRunner().invoke(cli, args)
         assert isinstance(r.exception, RuntimeError), r.output
         assert "device='cpu'" in str(r.exception)
