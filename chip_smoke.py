@@ -2,8 +2,8 @@
 """Drive stylemc_torch's serving, training (single prompt, prompt sweeps,
 the landmarks loss, the latent mapper, the e4e encoder), real-image
 editing, DeepLab feature-blending, GAN evaluation (calc_metrics, LEC),
-NADA-loss and warp paths and its fused-layer A/B on one CUDA card and
-check them.
+NADA-loss and warp paths, their data-parallel forms and its fused-layer
+A/B on one CUDA card and check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -91,7 +91,7 @@ script exits non-zero:
           within 1e-3) and after the run (cosine > 0.9999, norms within
           3e-3), beside the serial run repeated (not gated)
   landmarks  find_direction with landmarks_in_graph on the same models
-          and seeds, the landmark weights (seeded MTCNN P/R/O nets, their
+          and the first 33 seeds (9 steps), the landmark weights (seeded MTCNN P/R/O nets, their
           face logit biased so the cascade finds faces, and a seeded
           full-width MobileNet-GDConv, its last layer scaled around 0.5)
           written in the reference's formats ({p,r,o}net.npy, a
@@ -192,8 +192,8 @@ script exits non-zero:
           one strip per pair, both halves and the warped original
   metrics calc_metrics (fid50k_full, kid50k_full, pr50k3_full, is50k,
           ppl2_wend) as a subprocess on the FFHQ-256 generator with seeded
-          Inception v3 and LPIPS-VGG16 (--allow_random_init), 256 generated
-          images against a directory of 256 PNGs the generator rendered at
+          Inception v3 and LPIPS-VGG16 (--allow_random_init), 128 generated
+          images against a directory of 128 PNGs the generator rendered at
           other latents, batch 16; launches counted per metric; every result
           finite and in range (FID >= 0, precision and recall in [0, 1],
           IS >= 1); card against CPU on 16 of the images: Inception's
@@ -230,9 +230,36 @@ script exits non-zero:
           iteration_2.pkl to step 4; calc_losses_on_images in both modes,
           the photos against infer_e4e's reconstructions, card against
           --device cpu (rtol 1e-5)
+  dp_*    data parallelism (stylemc_torch.parallel) on the one card, each
+          gate a fixed constant beside a TF32 control of the sharded side
+          that must fail it (a gate of several bounds: at least one):
+          dp_coach (after e4e_train_parity): one R1 coach step at batch 4
+          over DataMesh([cuda:0, cuda:0]) against the unsharded step:
+          losses rtol 1e-4, the gradient at the codes 1e-3, the
+          discriminator 1e-5 (relative L2); B1 and B2 8 a shard.
+          dp_train (after sweep): find_direction on the first 32 training
+          seeds (8 steps) over two shards against unsharded, from d0: loss
+          history rtol 1e-4, the Δs update relative L2 3e-3; B1 and B2 12
+          a step; ms/step both ways (two shards of one card: not a scaling
+          figure). dp_sweep: optimize_batch, 4 prompts on zoo_mesh(2) over
+          [cuda:0] x 4, one step against the unsharded call at JAX's sweep
+          gate (cosine > 0.99999, norms 1e-3), then 4 steps recorded.
+          dp_ranks: two gloo ranks (stylemc_torch.bench.dp_ranks, each
+          under a timeout) run one full-width DP step (2 rows each) against
+          the full-batch step (rtol 1e-4, update 3e-3; bit-equal across the
+          ranks), append_multihost and Collector(cross_process=True); two
+          NCCL ranks on the card (what NCCL says is recorded); a world-size
+          1 NCCL group: the all-reduce bit-exact, the step at dp_train's
+          gates against no group beside a repeat, the all-reduce's time.
+          dp_serve (after clis): BatchEditor(mesh=) at batch 16 against
+          the unsharded editor (±1, at most 1e-3 of values off by one),
+          batch 1 on the plain path, images/s both ways. dp_metrics
+          (after metrics): FID, KID (rtol 1e-5) and PPL (1e-3) with mesh=
+          on 64 images against the same calls without it
   Every card-against-CPU gate of the mapper, DeepLab, metrics and NADA
   phases is a fixed constant, read beside a TF32 control of the card's side
-  (TF32 in cuDNN and cuBLAS) that must fail it.
+  (TF32 in cuDNN and cuBLAS) that must fail it. Each phase's seconds print
+  as {"phase_seconds": ...}, and all of them before the kernels line.
 
 Each path that renders or trains (the HTTP requests, the throughput calls,
 the parity render on the card, the precompute, the training steps, the
@@ -241,7 +268,8 @@ kernel's launch count set to 0 just before it and read just after; each
 must show B1 launched once per upper block of each synthesis call (6 at
 FFHQ-256, 8 at FFHQ-1024, 7 for a mapper step's 512 px render of
 FFHQ-1024), B2 once per upper block of each backward pass (6, 7 for a
-mapper step, 8 for an e4e coach step), and B3/B4/B5 never (the generator
+mapper step, 8 for an e4e coach step; on a mesh, once per shard), and
+B3/B4/B5 never (the generator
 runs the unfused layer, as the JAX generator does, with --train_decoder
 too); the e4e encoder and its discriminator, the mapper network, DeepLab,
 Inception, LPIPS, CLIP and the landmark nets launch none of them. Each
@@ -2266,7 +2294,10 @@ LANDMARK_WEIGHT_SEEDS = {"pnet": 11, "rnet": 12, "onet": 13, "mobilenet": 14}
 MTCNN_CLASSIFIER = {"pnet": "conv4_1", "rnet": "conv5_1", "onet": "conv6_1"}
 FACE_BIAS = 2.0
 MOBILENET_HEAD_SCALE = 0.01
-LANDMARK_SEEDS = 129
+# the landmarks phase's seeds: 33 of the training seeds (9 steps); all 129
+# until the data-parallel phases took the script's time (MTCNN's host pass
+# takes ~0.37 s a frame)
+LANDMARK_SEEDS = 33
 # Card-against-CPU gates of the landmarks phases, fixed (PERF.md §6),
 # each between the fp32 readings and its TF32 control's, which must fail
 # it (tf32_control); readings on an H100 80GB HBM3 at 700 W. The seeded
@@ -3647,12 +3678,12 @@ def phase_mapper_serve(torch, net, direction, tmp, smi, paths):
 # ------------------------------- GAN evaluation, LEC, NADA and the warp tools
 
 METRICS = "fid50k_full,kid50k_full,pr50k3_full,is50k,ppl2_wend"
-# 256 generated images against 256 stand-in PNGs (512 each until the e4e
-# training phases took the script's time)
-METRICS_NUM_GEN = 256
+# 128 generated images against 128 stand-in PNGs (512 each until the e4e
+# training phases, 256 until the data-parallel ones took the script's time)
+METRICS_NUM_GEN = 128
 METRICS_BATCH = 16
-METRICS_DATA_SEED = 1000   # the stand-in dataset's z: seeds 1000..1255
-METRICS_DATA = 256
+METRICS_DATA_SEED = 1000   # the stand-in dataset's z: seeds 1000..1127
+METRICS_DATA = 128
 METRICS_PARITY_IMAGES = 16
 # card against CPU, fixed, each beside a TF32 control that must fail it
 INCEPTION_REL_L2 = 1e-4
@@ -3732,8 +3763,8 @@ def make_metrics_data(torch, cfg, params, outdir):
 
 def phase_metrics(torch, net, tmp, smi, paths):
     """calc_metrics at full width: the FFHQ-256 generator, seeded Inception
-    v3 (both variants at 299) and LPIPS-VGG16, 256 generated images against
-    a directory of 256 PNGs that the generator rendered at other latents.
+    v3 (both variants at 299) and LPIPS-VGG16, 128 generated images against
+    a directory of 128 PNGs that the generator rendered at other latents.
     The CLI runs as a subprocess with the launches counted per metric; the
     results are finite and in range. Card against CPU on 16 of the images:
     Inception's features (both variants) and LPIPS-VGG distances, each
@@ -4429,6 +4460,561 @@ def phase_e4e_train_clis(cfg, net1024, e4e_photos, inversions, tmp, paths):
         raise AssertionError(f"e4e_train_clis checks failed: {checks}")
 
 
+# ---------------------------------------------------- data parallelism
+
+DP_SEEDS = 32              # dp_train: the first 32 training seeds, 8 steps
+# the Δs update (direction − d0), sharded against unsharded: the card's
+# step is not bit-reproducible, and its own repeat of a serial run moves a
+# run's update by up to 8.2e-4 (the sweep phase's serial_repeat)
+DP_DELTA_REL_L2 = 3e-3
+DP_SWEEP_SEEDS = 16        # dp_sweep's run: 4 steps of batch 4
+DP_SERVE_OFF_SHARE = 1e-3  # uint8 values off by one, sharded against plain
+DP_SERVE_BATCH = 16
+DP_COACH_BATCH = 4
+DP_METRICS_NUM = 64
+# each metric sharded against unsharded; PPL at its ε = 1e-4 reads fp32's
+# noise in each pair (ROADMAP §C.3)
+DP_METRICS_RTOL = {"fid50k_full": 1e-5, "kid50k_full": 1e-5,
+                   "ppl2_wend": 1e-3}
+DP_RANKS_ITEMS = 4         # one step of batch 4, 2 rows a process
+DP_RANKS_TIMEOUT_S = 240
+DP_PROBE_TIMEOUT_S = 60
+
+
+def card_mesh(n, axes=("data",), shape=None):
+    """n shards on the one card: a DataMesh over [cuda:0] * n."""
+    from stylemc_torch.parallel import DataMesh
+
+    return DataMesh(["cuda:0"] * n, axes, shape)
+
+
+def _gate_all(name, readings, control, gates, record):
+    """A gate of several bounds: every reading within its bound, and the
+    TF32 control beyond at least one of them."""
+    ok = {k: readings[k] <= g for k, g in gates.items()}
+    ctl = {k: control[k] <= g for k, g in gates.items()}
+    record[name] = {"value": readings, "tf32_control": control,
+                    "gate": gates, "control_fails": [k for k, v in
+                                                     ctl.items() if not v]}
+    if not all(ok.values()):
+        raise AssertionError(f"{name}: {readings} beyond {gates}")
+    if all(ctl.values()):
+        raise AssertionError(f"{name}: the TF32 control {control} passes "
+                             f"{gates}")
+
+
+def _run_readings(hist, d, ref_hist, ref_d, d0):
+    """The loss history's largest relative error and the Δs update's
+    (direction − d0) relative L2 against a reference run."""
+    import numpy as np
+
+    h, rh = np.asarray(hist, np.float64), np.asarray(ref_hist, np.float64)
+    d, rd = np.asarray(d, np.float64), np.asarray(ref_d, np.float64)
+    return {"history_rel": float(np.max(np.abs(h - rh) / np.abs(rh))),
+            "update_rel_l2": float(np.linalg.norm(d - rd)
+                                   / np.linalg.norm(rd - d0))}
+
+
+DP_TRAIN_GATES = {"history_rel": PARITY_LOSS_RTOL,
+                  "update_rel_l2": DP_DELTA_REL_L2}
+
+
+def phase_dp_train(torch, models, styles, direction_file, smi, paths):
+    """find_direction at full width (the train phase's models) on the
+    first DP_SEEDS seeds, batch 4, one epoch (8 steps) from the seeded
+    direction d0, on DataMesh([cuda:0, cuda:0]) (two shards of 2 a step)
+    and unsharded. Gate: loss history rtol 1e-4 and the Δs update's
+    relative L2 3e-3, beside a TF32 control of the sharded side; B1 and
+    B2 12 a step (6 a shard), B3-B5 none. ms/step both ways: two shards
+    on one card, not a scaling figure."""
+    import numpy as np
+
+    from stylemc_torch.models.clip import FallbackTokenizer
+    from stylemc_torch.train.find_direction import (FindDirectionConfig,
+                                                    find_direction)
+
+    t0 = time.perf_counter()
+    cfg, gp, _, _, clip, arc = models
+    d0 = np.load(direction_file)["s"].astype(np.float32)
+    rows = styles[:DP_SEEDS]
+    fdc = FindDirectionConfig(n_epochs=1)
+    chunks = -(-DP_SEEDS // 8)
+
+    def run(mesh):
+        (d, info), launches = count_launches(lambda: find_direction(
+            gp, cfg, rows, clip, arc, fdc, tokenizer=FallbackTokenizer(),
+            mesh=mesh, resume_direction=d0))
+        return d.cpu().numpy(), info, launches
+
+    sd, sinfo, sl = run(card_mesh(2))
+    steps = sinfo["iterations"]
+    record_launches(paths, cfg, "dp_train", sl, chunks + 2 * steps,
+                    2 * steps)
+    pd, pinfo, pl = run(None)
+    record_launches(paths, cfg, "dp_train_unsharded", pl, chunks + steps,
+                    steps)
+    with tf32_control(torch):
+        td, tinfo, _ = run(card_mesh(2))
+    readings = _run_readings(sinfo["history"], sd, pinfo["history"], pd, d0)
+    control = _run_readings(tinfo["history"], td, pinfo["history"], pd, d0)
+    gates = {}
+    checks = {"steps": steps == DP_SEEDS // fdc.batch_size,
+              "finite": bool(np.isfinite(sinfo["history"]).all()),
+              "moved": float(np.abs(sd - d0).max()) > 0,
+              "step_launches": {k: sl[k] - pl[k] for k in sl} == {
+                  "upsample2x": 6 * steps, "downsample2x": 6 * steps,
+                  **{k: 0 for k in MODCONV_KERNELS}}}
+    emit({"phase": "dp_train", "card": smi, "seeds": DP_SEEDS,
+          "batch": fdc.batch_size, "shards": 2, "steps": steps,
+          "sharded_ms_per_step": sinfo["steady_ms_per_step"],
+          "unsharded_ms_per_step": pinfo["steady_ms_per_step"],
+          "sharded_over_unsharded": sinfo["steady_ms_per_step"]
+          / pinfo["steady_ms_per_step"],
+          "readings": readings, "tf32_control": control,
+          "gates": DP_TRAIN_GATES,
+          "launches": {"sharded": sl, "unsharded": pl},
+          "note": "two shards of one card: not a scaling figure",
+          "seconds": time.perf_counter() - t0, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"dp_train checks failed: {checks}")
+    _gate_all("dp_train", readings, control, DP_TRAIN_GATES, gates)
+
+
+def phase_dp_sweep(torch, models, styles, direction_file, smi, paths):
+    """optimize_batch with the 4 sweep prompts on zoo_mesh(2) over
+    [cuda:0] x 4 ('prompt' 2 x 'data' 2) against the unsharded call, from
+    d0: one step on a 4-seed engine at a held learning rate, held to JAX's
+    one-step sweep gate (each prompt's update at cosine > 0.99999, norms
+    within 1e-3) beside a TF32 control of the sharded side; then a 4-step
+    run on 16 seeds, its agreement recorded. B1 and B2 24 a step (4
+    shards of 2 images), B3-B5 none."""
+    import numpy as np
+
+    from stylemc_torch.models.clip import FallbackTokenizer
+    from stylemc_torch.parallel import zoo_mesh
+    from stylemc_torch.train.find_direction import (DirectionEngine,
+                                                    FindDirectionConfig)
+
+    t0 = time.perf_counter()
+    cfg, gp, _, _, clip, arc = models
+    d0 = np.load(direction_file)["s"].astype(np.float32)
+    resume = [d0] * len(SWEEP_PROMPTS)
+    mesh = zoo_mesh(2, devices=["cuda:0"] * 4)
+    fdc = FindDirectionConfig(n_epochs=1)
+
+    def engine(rows, fdc):
+        return DirectionEngine(gp, cfg, rows, clip, arc, fdc,
+                               tokenizer=FallbackTokenizer())
+
+    def batched(eng, mesh):
+        d, info = eng.optimize_batch(SWEEP_PROMPTS, mesh=mesh,
+                                     resume_directions=resume)
+        return d.cpu().numpy(), info
+
+    def gate_of(rows):
+        return {"one_minus_cosine": max(1 - r["cosine_of_update"]
+                                        for r in rows),
+                "norm_ratio_error": max(abs(r["update_norm_ratio"] - 1)
+                                        for r in rows)}
+
+    one = engine(styles[:fdc.batch_size],
+                 dataclasses.replace(fdc, lr_schedule="constant"))
+    (s1, _), l1 = count_launches(lambda: batched(one, mesh))
+    record_launches(paths, cfg, "dp_sweep_one_step", l1, 4, 4)
+    p1, _ = batched(one, None)
+    with tf32_control(torch):
+        t1, _ = batched(one, mesh)
+    readings = gate_of(_update_agreement(s1, p1, d0))
+    control = gate_of(_update_agreement(t1, p1, d0))
+    del one
+    run = engine(styles[:DP_SWEEP_SEEDS], fdc)
+    (sd, sinfo), lr = count_launches(lambda: batched(run, mesh))
+    steps = sinfo["iterations"]
+    record_launches(paths, cfg, "dp_sweep", lr, 4 * steps, 4 * steps)
+    pd, pinfo = batched(run, None)
+    gates = {"one_minus_cosine": 1 - SWEEP_STEP_COS,
+             "norm_ratio_error": SWEEP_STEP_NORM_RTOL}
+    checks = {"steps": steps == DP_SWEEP_SEEDS // fdc.batch_size,
+              "history_finite": bool(np.isfinite(sinfo["history"]).all()),
+              "run_moved": float(np.abs(sd - d0).max()) > 0}
+    emit({"phase": "dp_sweep", "card": smi, "mesh": mesh.shape,
+          "prompts": len(SWEEP_PROMPTS), "batch": fdc.batch_size,
+          "one_step": readings, "tf32_control": control, "gates": gates,
+          "run_agreement": _update_agreement(sd, pd, d0),
+          "run_history_max_rel": float(np.max(np.abs(
+              sinfo["history"] - pinfo["history"])
+              / np.abs(pinfo["history"]))),
+          "sharded_ms_per_step": sinfo["steady_ms_per_step"],
+          "unsharded_ms_per_step": pinfo["steady_ms_per_step"],
+          "launches": {"one_step": l1, "run": lr},
+          "seconds": time.perf_counter() - t0, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"dp_sweep checks failed: {checks}")
+    _gate_all("dp_sweep", readings, control, gates, {})
+
+
+def _off_by_one(a, b):
+    """(max |a − b|, share of values that differ) of two uint8 arrays."""
+    import numpy as np
+
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), float((d > 0).mean())
+
+
+def phase_dp_serve(torch, net, direction, smi, paths):
+    """BatchEditor(mesh=[cuda:0, cuda:0]) against the unsharded editor on
+    the serving cell: a batch-16 request within ±1 per uint8 and at most
+    DP_SERVE_OFF_SHARE of its values off by one (beside a TF32 control of
+    the sharded editor that must exceed it); its launches, 2 synthesis
+    calls (B1 12); a batch-1 request takes the plain path (1 call, B1 6).
+    images/s at batch 16 both ways."""
+    from stylemc_torch.serve import BatchEditor
+
+    t0 = time.perf_counter()
+    sharded = BatchEditor.from_files(net, direction=direction, max_batch=64,
+                                     mesh=card_mesh(2), device="cuda")
+    plain = BatchEditor.from_files(net, direction=direction, max_batch=64,
+                                   device="cuda")
+    styles = plain.styles_from_seeds(list(range(DP_SERVE_BATCH)))
+    want = plain.edit_styles(styles, change_power=2.0)
+    got, launches = count_launches(
+        lambda: sharded.edit_styles(styles, change_power=2.0))
+    record_launches(paths, sharded.cfg, "dp_serve_b16", launches, 2)
+    small, l1 = count_launches(
+        lambda: sharded.edit_styles(styles[:1], change_power=2.0))
+    record_launches(paths, sharded.cfg, "dp_serve_b1", l1, 1)
+    with tf32_control(torch):
+        t32 = sharded.edit_styles(styles, change_power=2.0)
+    rate = {}
+    for name, ed in (("sharded", sharded), ("unsharded", plain)):
+        ed.edit_styles(styles, change_power=2.0)
+        ms = event_ms(lambda ed=ed: ed.edit_styles(styles, change_power=2.0),
+                      iters=10, warmup=2)
+        rate[name] = DP_SERVE_BATCH * 1e3 / ms
+    worst, share = _off_by_one(got, want)
+    worst_t, share_t = _off_by_one(t32, want)
+    worst1, _ = _off_by_one(small, want[:1])
+    checks = {"within_one": worst <= 1, "b1_within_one": worst1 <= 1,
+              "shape": got.shape == want.shape}
+    emit({"phase": "dp_serve", "card": smi, "batch": DP_SERVE_BATCH,
+          "shards": 2, "max_abs": worst, "off_by_one_share": share,
+          "tf32_control": {"max_abs": worst_t, "off_by_one_share": share_t},
+          "gate_off_by_one_share": DP_SERVE_OFF_SHARE,
+          "images_per_s": rate,
+          "times_are": "CUDA events over 10 back-to-back edit_styles calls "
+                       "(host cost and the uint8 copy included)",
+          "launches": {"b16": launches, "b1": l1},
+          "seconds": time.perf_counter() - t0, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"dp_serve checks failed: {checks}")
+    _gate("dp_serve_off_by_one_share", share, share_t, DP_SERVE_OFF_SHARE,
+          {})
+
+
+def phase_dp_coach(torch, models, photos, smi, paths):
+    """One full-width coach step (e4e_train's models, the R1 step at
+    global step 16, stage 7, batch 4) over DataMesh([cuda:0, cuda:0])
+    against the unsharded step on the card: the discriminator's step and
+    R1, then the encoder's loss and gradients against the updated
+    discriminator. Gates (e4e_train_parity's): every loss rtol 1e-4, the
+    loss's gradient at the codes relative L2 1e-3, the discriminator after
+    its step and R1 relative L2 1e-5, each beside a TF32 control of the
+    sharded side. B1 and B2 8 a shard."""
+    import numpy as np
+
+    from stylemc_torch.data.images import ImagesDataset
+    from stylemc_torch.train.coach import Coach, CoachOptions
+    from stylemc_torch.train.ranger import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg, psp, perception = models
+    ds = ImagesDataset(photos, size=256)
+    x = np.stack([ds[i][0] for i in range(DP_COACH_BATCH)])
+    opts = CoachOptions(**{**E4E_TRAIN_OPTS, "batch_size": DP_COACH_BATCH})
+
+    def step(mesh, tf32=False):
+        c = Coach(opts, psp, perception, lambda: None, mesh=mesh,
+                  device="cuda")
+        c.global_step = E4E_PARITY_STEP
+        stage = c.progressive_stage()
+        at_codes = []
+        calc = c._calc_loss
+
+        def hooked(*a, **kw):
+            loss, (d, y_hat, latent) = calc(*a, **kw)
+            latent.register_hook(lambda g: at_codes.append(g.detach()))
+            return loss, (d, y_hat, latent)
+
+        c._calc_loss = hooked
+        xt = c._to_device(x)
+        with tf32_control(torch) if tf32 else contextlib.nullcontext():
+            d_dict = c.train_discriminator(xt)
+            enc_dict, _ = c.encoder_gradients(xt, xt, stage)
+        # the full batch's gradient at the codes: each shard's, weighted by
+        # its share of the rows
+        n = len(at_codes)
+        g = torch.cat([a / n for a in at_codes]).cpu()
+        losses = {k: float(v) for k, v in {**d_dict, **enc_dict}.items()}
+        disc = torch.cat([t.detach().reshape(-1) for t in
+                          tree_leaves(c.discriminator_params)]).cpu()
+        del c
+        torch.cuda.empty_cache()
+        return losses, g, disc, stage
+
+    (sharded, sg, sdisc, stage), launches = count_launches(
+        lambda: step(card_mesh(2)))
+    record_launches(paths, cfg, "dp_coach", launches, 2, 2)
+    plain, pg, pdisc, _ = step(None)
+    t32, tg, tdisc, _ = step(card_mesh(2), tf32=True)
+
+    def reading(losses, g, disc):
+        return {"loss_rel": max(abs(losses[k] - plain[k])
+                                / max(abs(plain[k]), 1e-12) for k in plain),
+                "codes_grad_rel_l2": _rel(g, pg),
+                "discriminator_rel_l2": _rel(disc, pdisc)}
+
+    gates = {"loss_rel": E4E_PARITY_LOSS_RTOL,
+             "codes_grad_rel_l2": E4E_PARITY_GRAD_REL_L2,
+             "discriminator_rel_l2": E4E_PARITY_D_REL_L2}
+    readings, control = reading(sharded, sg, sdisc), reading(t32, tg, tdisc)
+    checks = {"keys": list(sharded) == list(plain),
+              "finite": _finite(sharded), "r1": "discriminator_r1_loss"
+              in sharded, "stage": stage == 7}
+    emit({"phase": "dp_coach", "card": smi, "batch": DP_COACH_BATCH,
+          "shards": 2, "stage": stage, "losses": sharded,
+          "readings": readings, "tf32_control": control, "gates": gates,
+          "launches": launches, "seconds": time.perf_counter() - t0,
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"dp_coach checks failed: {checks}")
+    record = {}
+    for k, g in gates.items():
+        _gate(f"dp_coach_{k}", readings[k], control[k], g, record)
+
+
+def phase_dp_metrics(torch, net, smi, paths):
+    """FID, KID and PPL (calc_metric) at full width with mesh=[cuda:0,
+    cuda:0] on DP_METRICS_NUM generated images against the same calls
+    without it; the seeded Inception v3 and LPIPS-VGG16, and a stand-in
+    dataset of 64 images the generator renders at other latents, its
+    features computed once. Every metric value within rtol
+    DP_METRICS_RTOL, beside a TF32 control of the sharded side; the
+    features of each run go through one FeatureStats. Launches per
+    metric: 2 synthesis calls a batch of 16 (PPL: 4)."""
+    import numpy as np
+
+    from stylemc_torch.edit import to_u8_nhwc
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.metrics import FeatureStats, MetricOptions, calc_metric
+    from stylemc_torch.metrics.inception import inception_features
+    from stylemc_torch.models.stylegan2.generator import (
+        inference_cfg, mapping, synthesis, w_to_s)
+
+    t0 = time.perf_counter()
+    cfg, params = load_generator(net, device="cuda")
+    cfg = inference_cfg(cfg)
+    inc, lp = metric_detectors(torch, "cuda")
+    gen = torch.Generator().manual_seed(METRICS_DATA_SEED)
+    with torch.no_grad():
+        z = torch.randn((DP_METRICS_NUM, cfg.z_dim), generator=gen).cuda()
+        real = to_u8_nhwc(synthesis(params, cfg, w_to_s(params, cfg, mapping(
+            params, cfg, z))))
+        real_f = inception_features(inc, real).cpu().numpy()
+
+    def dataset(opts, max_items):
+        stats = FeatureStats(capture_all=True, capture_mean_cov=True,
+                             max_items=max_items)
+        stats.append(real_f)
+        return stats
+
+    def opts(mesh):
+        return MetricOptions(
+            gen_params=params, gen_cfg=cfg, lpips_params=lp,
+            inception_features_fn=lambda u: inception_features(inc, u),
+            dataset_features_fn=dataset, num_gen=DP_METRICS_NUM,
+            batch_size=METRICS_BATCH, device="cuda", mesh=mesh)
+
+    calls = DP_METRICS_NUM // METRICS_BATCH
+    values = {}
+    for name in DP_METRICS_RTOL:
+        per = 4 * calls if name == "ppl2_wend" else 2 * calls
+        r, launched = count_launches(
+            lambda: calc_metric(name, opts=opts(card_mesh(2))))
+        record_launches(paths, cfg, f"dp_{name}", launched, per)
+        sharded = next(iter(r.results.values()))
+        plain = next(iter(calc_metric(name, opts=opts(None))
+                          .results.values()))
+        with tf32_control(torch):
+            t32 = next(iter(calc_metric(name, opts=opts(card_mesh(2)))
+                            .results.values()))
+        values[name] = {"sharded": sharded, "unsharded": plain,
+                        "tf32_sharded": t32,
+                        "rel": abs(sharded - plain) / abs(plain),
+                        "tf32_rel": abs(t32 - plain) / abs(plain),
+                        "seconds_sharded": r.total_time}
+    checks = {"finite": all(np.isfinite(v["sharded"])
+                            for v in values.values())}
+    emit({"phase": "dp_metrics", "card": smi, "images": DP_METRICS_NUM,
+          "batch": METRICS_BATCH, "shards": 2, "values": values,
+          "gates_rtol": DP_METRICS_RTOL, "seconds": time.perf_counter() - t0,
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"dp_metrics checks failed: {checks}")
+    record = {}
+    for name, v in values.items():
+        _gate(f"dp_{name}", v["rel"], v["tf32_rel"], DP_METRICS_RTOL[name],
+              record)
+
+
+def phase_dp_ranks(torch, models, styles, net, direction_file, tmp, smi,
+                   paths):
+    """Data parallelism across processes on the one card. (1) Two
+    subprocesses (`stylemc_torch.bench.dp_ranks`) form a gloo group and
+    run its three checks: one full-width find_direction step of batch 4
+    (2 rows a process) against the single-process full-batch step on the
+    card (loss rtol 1e-4, the Δs update relative L2 3e-3; the TF32
+    control of the full-batch step must fail it), the two ranks bit-equal;
+    append_multihost's process-major rows; Collector(cross_process=True)
+    over the union. (2) Two NCCL ranks on the one card, each under a
+    timeout: what NCCL does with them is recorded. (3) A world-size-1
+    NCCL group in this process: the same DP step through a real NCCL
+    all-reduce, whose output must equal its input bit for bit, and the
+    step held to the run with no group at dp_train's gates beside a
+    repeat of that run (the card's step is not bit-reproducible run to
+    run: cuDNN's and the resizes' backward kernels sum in no fixed
+    order); the all-reduce's time for Δs's gradient."""
+    import numpy as np
+
+    from stylemc_torch.bench import dp_ranks
+    from stylemc_torch.models.clip import CLIP_CONFIGS
+    from stylemc_torch.parallel.mesh import all_reduce_sum
+
+    t0 = time.perf_counter()
+    cfg, gp, _, _, clip, arc = models
+    d0 = np.load(direction_file)["s"].astype(np.float32)
+    items = styles[:DP_RANKS_ITEMS].cpu().numpy()
+    fdc = {"n_epochs": 1, "lr_schedule": "constant"}
+    spec = {"network": net, "clip": {k: ({}, s) for k, s in
+                                      CLIP_SEEDS.items()},
+            "arcface": ARCFACE_SEED, "styles": items, "fdc": fdc,
+            "resume": d0, "device": "cuda:0", "shards": 1,
+            "backend": "gloo", "threads": 4}
+    assert set(CLIP_CONFIGS) >= set(CLIP_SEEDS)
+    models_t = (cfg, gp, clip, arc)
+    ref_d, ref = dp_ranks.dp_step(spec, models_t, None)
+    with tf32_control(torch):
+        t_d, t_info = dp_ranks.dp_step(spec, models_t, None)
+    control = _run_readings(t_info["history"], t_d, ref["history"], ref_d,
+                            d0)
+    tol = {"history_rtol": PARITY_LOSS_RTOL, "direction_key":
+           "update_rel_l2", "direction_tol": DP_DELTA_REL_L2}
+    spec["refs"] = {"full_batch": dict(tol, history=ref["history"],
+                                       direction=ref_d)}
+    path = dp_ranks.write_spec(os.path.join(tmp, "dp_spec.pkl"), **spec)
+    port = dp_ranks.free_port()
+    outs = [os.path.join(tmp, f"dp_rank{r}.json") for r in range(2)]
+    t1 = time.perf_counter()
+    procs = dp_ranks.spawn_group(lambda r: [path, r, 2, port, outs[r]], 2,
+                                 DP_RANKS_TIMEOUT_S)
+    group_s = time.perf_counter() - t1
+    for r, p in enumerate(procs):
+        if p["rc"] != 0 or p["timed_out"]:
+            raise RuntimeError(f"dp_ranks rank {r}: rc {p['rc']}, timed out "
+                               f"{p['timed_out']}\n{p['output'][-4000:]}")
+    res = []
+    for r, out in enumerate(outs):
+        with open(out) as f:
+            res.append(json.load(f))
+        # each rank renders its items once (one precompute chunk), then
+        # its shard of the step: a synthesis call and a backward pass
+        record_launches(paths, cfg, f"dp_ranks_gloo_rank{r}",
+                        res[r]["launches"], 2, 1)
+
+    # two NCCL ranks on one card
+    port = dp_ranks.free_port()
+    probe = dp_ranks.spawn_group(lambda r: ["--probe", "nccl", r, 2, port],
+                                 2, DP_PROBE_TIMEOUT_S)
+    nccl_pair = [{"rc": p["rc"], "timed_out": p["timed_out"],
+                  "said": [x for x in p["output"].splitlines()
+                           if "uplicate" in x or "rank" in x.lower()][-4:]}
+                 for p in probe]
+
+    # a world-size-1 NCCL group in this process; the step's all-reduce
+    # recorded: what went in and what came out
+    from stylemc_torch.parallel import DataMesh
+    from stylemc_torch.parallel import mesh as pmesh
+
+    mesh1 = DataMesh(["cuda:0"])
+    nogroup_d, nogroup = dp_ranks.dp_step(spec, models_t, mesh1)
+    repeat_d, repeat = dp_ranks.dp_step(spec, models_t, mesh1)
+    reduced = []
+
+    def recording(tensors):
+        ins = [t.detach().clone() for t in tensors]
+        outs = all_reduce_sum(tensors)
+        reduced.append((ins, [t.detach().clone() for t in outs]))
+        return outs
+
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{dp_ranks.free_port()}",
+        world_size=1, rank=0)
+    pmesh.all_reduce_sum = recording
+    try:
+        (group_d, group), launches = count_launches(
+            lambda: dp_ranks.dp_step(spec, models_t, mesh1))
+        pmesh.all_reduce_sum = all_reduce_sum
+        g = torch.randn((1, 8, 512), device="cuda")
+        vals = [torch.randn((), device="cuda") for _ in range(4)]
+        reduce_ms = event_ms(lambda: all_reduce_sum([g] + vals), iters=50,
+                             warmup=5)
+        backend = torch.distributed.get_backend()
+    finally:
+        pmesh.all_reduce_sum = all_reduce_sum
+        torch.distributed.destroy_process_group()
+    record_launches(paths, cfg, "dp_ranks_nccl1", launches,
+                    1 + group["iterations"], group["iterations"])
+    nccl1 = {"group_vs_nogroup": _run_readings(
+        group["history"], group_d, nogroup["history"], nogroup_d, d0),
+        "repeat_vs_nogroup": _run_readings(
+            repeat["history"], repeat_d, nogroup["history"], nogroup_d, d0),
+        "repeat_bit_equal": bool(np.array_equal(repeat_d, nogroup_d)),
+        "all_reduces": len(reduced),
+        "all_reduce_bit_equal": all(
+            torch.equal(a, b) for ins, outs in reduced
+            for a, b in zip(ins, outs))}
+    readings = res[0]["refs"]["full_batch"]
+    checks = {
+        "ranks_ok": all(x["ok"] for x in res),
+        "append_multihost": all(x["append_multihost"] for x in res),
+        "collector": all(x["collector_cross_process"] for x in res),
+        "ranks_bit_equal": res[0]["history"] == res[1]["history"]
+        and res[0]["direction_sum"] == res[1]["direction_sum"]
+        and res[0]["direction_norm"] == res[1]["direction_norm"],
+        "nccl1_all_reduce_bit_equal": nccl1["all_reduce_bit_equal"]
+        and nccl1["all_reduces"] == group["iterations"],
+        "nccl1_step": all(nccl1["group_vs_nogroup"][k] <= g
+                          for k, g in DP_TRAIN_GATES.items()),
+        "nccl1_backend": backend == "nccl"}
+    emit({"phase": "dp_ranks", "card": smi, "world": 2, "backend": "gloo",
+          "items": DP_RANKS_ITEMS, "readings": readings,
+          "tf32_control": control,
+          "gates": {"history_rel": PARITY_LOSS_RTOL,
+                    "update_rel_l2": DP_DELTA_REL_L2},
+          "rank_step_s": [x["dp_step_s"] for x in res],
+          "group_seconds": group_s, "nccl_two_ranks_one_card": nccl_pair,
+          "nccl1": nccl1,
+          "nccl1_all_reduce_ms": reduce_ms,
+          "all_reduce_is": "one NCCL all-reduce of Δs's gradient [1,8,512] "
+                           "and 4 scalars, world size 1; CUDA events over "
+                           "50 back-to-back calls",
+          "launches_nccl1": launches, "seconds": time.perf_counter() - t0,
+          "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"dp_ranks checks failed: {checks}")
+    _gate_all("dp_ranks", {k: readings[k] for k in DP_TRAIN_GATES}, control,
+              DP_TRAIN_GATES, {})
+
+
 MODCONV_REPLACES = {
     "modconv_fwd": ("modconv_pallas.py:88", "_fwd_kernel/_fwd_call"),
     "modconv_bwd_data": ("modconv_pallas.py:170",
@@ -4525,67 +5111,101 @@ def main() -> int:
               "(stylemc_torch/ not found)", file=sys.stderr)
         return 1
 
-    smi = phase_env(torch)
-    phase_build()
-    floor_ms, kernel_rows = phase_kernel(torch)
-    phase_grad(torch)
+    seconds = {}
+
+    def run(name, fn, *args):
+        """fn(*args), its seconds kept and printed."""
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        emit({"phase_seconds": name, "seconds": seconds[name]})
+        return out
+
+    smi = run("env", phase_env, torch)
+    run("build", phase_build)
+    floor_ms, kernel_rows = run("kernel", phase_kernel, torch)
+    run("grad", phase_grad, torch)
     # before any profiler trace, like the training phases
-    modconv_rows, _ = phase_modconv(torch)
-    mma_rate = phase_mma_rate()
+    modconv_rows, _ = run("modconv", phase_modconv, torch)
+    mma_rate = run("mma_rate", phase_mma_rate)
     kernel_rates(modconv_rows, mma_rate)
     paths = {}  # path → its launches, synthesis calls and backward passes
-    phase_ab(torch, smi, paths)
+    run("ab", phase_ab, torch, smi, paths)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         _, net, direction = make_network(torch, tmp)
         cfg1024, net1024 = make_ffhq1024(torch, tmp, MAPPER_NET_SEEDS[0])
         # the training paths first: their timed runs come before any
         # profiler trace
-        e4e_models, e4e_train_photos = phase_e4e_train(torch, net1024, tmp,
-                                                       smi, paths)
-        editor, models = phase_train(torch, net, smi, paths)
-        phase_e4e_train_breakdown(torch, e4e_models, e4e_train_photos, smi)
-        phase_e4e_train_parity(torch, e4e_models, e4e_train_photos, smi,
-                               paths)
+        e4e_models, e4e_train_photos = run(
+            "e4e_train", phase_e4e_train, torch, net1024, tmp, smi, paths)
+        editor, models = run("train", phase_train, torch, net, smi, paths)
+        run("e4e_train_breakdown", phase_e4e_train_breakdown, torch,
+            e4e_models, e4e_train_photos, smi)
+        run("e4e_train_parity", phase_e4e_train_parity, torch, e4e_models,
+            e4e_train_photos, smi, paths)
+        run("dp_coach", phase_dp_coach, torch, e4e_models, e4e_train_photos,
+            smi, paths)
         del e4e_models
         torch.cuda.empty_cache()
-        phase_train_parity(torch, net, editor, direction, models, paths)
-        phase_nada(torch, net, editor, models, smi, paths)
+        run("train_parity", phase_train_parity, torch, net, editor,
+            direction, models, paths)
+        run("nada", phase_nada, torch, net, editor, models, smi, paths)
         # prompt sweeps and the landmarks stack, on the train phase's
         # models and seeds
         styles = editor.styles_from_seeds(list(range(TRAIN_SEEDS)))
-        phase_sweep(torch, models, styles, direction, smi, paths)
+        run("sweep", phase_sweep, torch, models, styles, direction, smi,
+            paths)
+        # data parallelism on the same models and seeds
+        run("dp_train", phase_dp_train, torch, models, styles, direction,
+            smi, paths)
+        run("dp_sweep", phase_dp_sweep, torch, models, styles, direction,
+            smi, paths)
+        run("dp_ranks", phase_dp_ranks, torch, models, styles, net,
+            direction, tmp, smi, paths)
         landmark_files = make_landmark_weights(torch, tmp)
-        landmarker = phase_landmarks(torch, models, styles, landmark_files,
-                                     smi, paths)
-        phase_landmarks_parity(torch, net, models, styles, direction,
-                               landmarker, landmark_files, paths)
-        phase_landmarks_metric(torch, net, models, styles, direction,
-                               landmarker, landmark_files, paths)
-        phase_sweep_clis(models[0], net, styles, tmp, landmark_files, paths)
+        landmarker = run("landmarks", phase_landmarks, torch, models, styles,
+                         landmark_files, smi, paths)
+        run("landmarks_parity", phase_landmarks_parity, torch, net, models,
+            styles, direction, landmarker, landmark_files, paths)
+        run("landmarks_metric", phase_landmarks_metric, torch, net, models,
+            styles, direction, landmarker, landmark_files, paths)
+        run("sweep_clis", phase_sweep_clis, models[0], net, styles, tmp,
+            landmark_files, paths)
         # the latent mapper and the DeepLab face parser, on the train
         # phase's perception models
         _, net1024b = make_ffhq1024(torch, tmp, MAPPER_NET_SEEDS[1])
-        _, mapper_styles = phase_mapper(torch, models, net1024, smi, paths)
-        phase_mapper_parity(torch, models, net1024, smi, paths)
-        ckpt, seg = phase_deeplab(torch, cfg1024, tmp, smi, paths)
-        phase_mapper_clis(torch, cfg1024, net1024, net1024b, mapper_styles,
-                          ckpt, seg, tmp, smi, paths)
+        _, mapper_styles = run("mapper", phase_mapper, torch, models,
+                               net1024, smi, paths)
+        run("mapper_parity", phase_mapper_parity, torch, models, net1024, smi,
+            paths)
+        ckpt, seg = run("deeplab", phase_deeplab, torch, cfg1024, tmp, smi,
+                        paths)
+        run("mapper_clis", phase_mapper_clis, torch, cfg1024, net1024,
+            net1024b, mapper_styles, ckpt, seg, tmp, smi, paths)
         del editor, models, landmarker, styles, mapper_styles, seg
         torch.cuda.empty_cache()
-        editor = phase_serve(torch, net, direction, smi, paths)
-        phase_parity(editor, net, direction, paths)
-        phase_clis(editor, net, direction, tmp, paths)
+        editor = run("serve", phase_serve, torch, net, direction, smi, paths)
+        run("parity", phase_parity, editor, net, direction, paths)
+        run("clis", phase_clis, editor, net, direction, tmp, paths)
         del editor
         torch.cuda.empty_cache()
-        phase_warp(tmp, landmark_files, paths)
-        phase_metrics(torch, net, tmp, smi, paths)
+        run("dp_serve", phase_dp_serve, torch, net, direction, smi, paths)
         torch.cuda.empty_cache()
-        phase_mapper_serve(torch, net, direction, tmp, smi, paths)
+        run("warp", phase_warp, tmp, landmark_files, paths)
+        run("metrics", phase_metrics, torch, net, tmp, smi, paths)
+        run("dp_metrics", phase_dp_metrics, torch, net, smi, paths)
         torch.cuda.empty_cache()
-        ckpt, photos = phase_e4e(torch, tmp, smi, paths, landmark_files)
-        phase_lec(torch, ckpt, photos, paths)
-        phase_e4e_train_clis(cfg1024, net1024, photos, os.path.join(
-            tmp, "e4e_inversion", "inversions"), tmp, paths)
+        run("mapper_serve", phase_mapper_serve, torch, net, direction, tmp,
+            smi, paths)
+        torch.cuda.empty_cache()
+        ckpt, photos = run("e4e", phase_e4e, torch, tmp, smi, paths,
+                           landmark_files)
+        run("lec", phase_lec, torch, ckpt, photos, paths)
+        run("e4e_train_clis", phase_e4e_train_clis, cfg1024, net1024, photos,
+            os.path.join(tmp, "e4e_inversion", "inversions"), tmp, paths)
+    dp = [k for k in seconds if k.startswith("dp_")]
+    emit({"phase_seconds_all": seconds, "total_s": sum(seconds.values()),
+          "dp_phases_s": sum(seconds[k] for k in dp)})
 
     timed = {"upsample2x": CHAIN_SHAPES, "downsample2x": TRAIN_DOWN_SHAPES}
     sources = {"upsample2x": ("upfirdn2d_pallas.py:132", "_upsample2x_core"),

@@ -11,7 +11,9 @@ both from fixed seeds instead. Detector variants (--detector_variant,
 recorded in every result line): fid2015, the Inception-2015 TF graph the
 reference's detector encodes; tv, torchvision's inception_v3, not
 comparable to reference FIDs. Everything runs on --device (cuda unless
-told otherwise); --data_parallel on one card runs as without it.
+told otherwise); --data_parallel splits each generator batch (and PPL's
+pairs) over the process's cards (`data_mesh(max_size=batch)`); on one card
+or the CPU it runs as without it.
 
   python -m stylemc_torch.cli.calc_metrics --network ffhq.pkl \\
       --metrics fid50k_full,kid50k_full --data ffhq_images --num_gen 50000
@@ -47,8 +49,8 @@ LPIPS_SEED = 1
                    "(FID comparable to the reference); tv = torchvision")
 @click.option("--allow_random_init", is_flag=True, default=False)
 @click.option("--data_parallel", is_flag=True, default=False,
-              help="split feature extraction over the visible cards; one "
-                   "card runs as without it")
+              help="shard feature extraction over all local devices "
+                   "(1-axis data mesh)")
 @click.option("--device", default="cuda", show_default=True)
 def main(network_pkl, metrics, data_dir, num_gen, batch, inception_path,
          detector_variant, allow_random_init, data_parallel, device):
@@ -63,6 +65,7 @@ def main(network_pkl, metrics, data_dir, num_gen, batch, inception_path,
     from ..metrics import inception as inc
     from ..metrics.feature_stats import FeatureStats
     from ..models.stylegan2.generator import inference_cfg
+    from ..parallel.mesh import cli_mesh
 
     dev = resolve_device(device)
     disable_tf32(dev)
@@ -71,10 +74,6 @@ def main(network_pkl, metrics, data_dir, num_gen, batch, inception_path,
         if not is_valid_metric(name):
             raise click.BadParameter(f"unknown metric {name}",
                                      param_hint="--metrics")
-    if data_parallel and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "--data_parallel over several cards is not ported yet "
-            "(ROADMAP A17)")
 
     cfg, params = load_generator(network_pkl, device=dev)
     cfg = inference_cfg(cfg)  # the feature loops are forward-only
@@ -122,12 +121,16 @@ def main(network_pkl, metrics, data_dir, num_gen, batch, inception_path,
         lpips_params = init_lpips_params(
             torch.Generator().manual_seed(LPIPS_SEED), "vgg", device=dev)
 
+    mesh = cli_mesh(data_parallel, batch, dev)
+    if mesh is not None:
+        print(f"data-parallel feature extraction over {mesh.size} devices")
+
     opts = MetricOptions(
         gen_params=params, gen_cfg=cfg,
         inception_features_fn=features_fn, inception_probs_fn=probs_fn,
         dataset_features_fn=dataset_features_fn,
         lpips_params=lpips_params, num_gen=num_gen, batch_size=batch,
-        device=dev)
+        device=dev, mesh=mesh)
 
     for name in names:
         out = calc_metric(name, opts=opts)

@@ -22,8 +22,11 @@ STYLEMC_MOBILENET; without them the logging-only metric reads 0, and
 
 --text_prompts writes one direction_<prompt>.npz per prompt (and
 direction_last_<prompt>.npz every 1000 iterations with --batch_prompts);
---resume may then name a directory of them. --data_parallel runs on one
-card (multi-GPU training is ROADMAP A17).
+--resume may then name a directory of them. --data_parallel (on by
+default) splits each step's batch over the process's cards
+(`data_mesh(max_size=batch_size)`), and a --batch_prompts sweep's prompts
+and batch over them (`best_zoo_mesh`); on one card or the CPU it trains
+as without it.
 """
 
 from __future__ import annotations
@@ -108,8 +111,9 @@ def _resolve_zoo_resume(resume, prompts):
 @click.option("--allow_random_init", is_flag=True, default=False,
               help="Random-init missing perception weights (smoke test only)")
 @click.option("--data_parallel/--no-data_parallel", default=True,
-              help="Accepted; training runs on one card (multi-GPU is "
-                   "ROADMAP A17)")
+              help="Shard each step's batch over all local CUDA devices "
+                   "(1-axis data mesh); a --batch_prompts sweep shards "
+                   "prompts, then batches")
 @click.option("--split_step", is_flag=True, default=False,
               help="Accepted; the same per-step loop and numbers")
 @click.option("--bf16", is_flag=True, default=False,
@@ -161,6 +165,7 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
 
     from ..device import resolve_device
     from ..io import load_generator
+    from ..parallel.mesh import cli_mesh
     from ..train.find_direction import FindDirectionConfig, find_direction
     from ..utils.logging import RunLogger
     from ..utils.model_zoo import load_arcface, load_clip_models
@@ -259,11 +264,16 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
         if text_prompts:
             _sweep(params, cfg, styles_array, clip_models, arcface_params,
                    fdc, tokenizer, text_prompts, negative_text_prompts,
-                   batch_prompts, resume, resume_direction, outdir, logger)
+                   batch_prompts, resume, resume_direction, outdir, logger,
+                   data_parallel, dev)
         else:
+            mesh = cli_mesh(data_parallel, batch_size, dev)
+            if mesh is not None:
+                print(f"data-parallel training over {mesh.size} devices")
             direction, info = find_direction(
                 params, cfg, styles_array, clip_models, arcface_params, fdc,
-                tokenizer=tokenizer, resume_direction=resume_direction,
+                tokenizer=tokenizer, mesh=mesh,
+                resume_direction=resume_direction,
                 callback=callback, landmarks_metric_fn=landmarks_metric_fn,
                 landmarker=landmarker if landmarks_grad else None)
     if trace_dir:
@@ -288,9 +298,11 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
 
 def _sweep(params, cfg, styles_array, clip_models, arcface_params, fdc,
            tokenizer, text_prompts, negative_text_prompts, batch_prompts,
-           resume, resume_direction, outdir, logger):
+           resume, resume_direction, outdir, logger, data_parallel, dev):
     """--text_prompts: every prompt over one DirectionEngine, at once
-    (--batch_prompts) or one after another; a direction_<tag>.npz each."""
+    (--batch_prompts, over `best_zoo_mesh` with --data_parallel) or one
+    after another; a direction_<tag>.npz each."""
+    from ..parallel.mesh import cli_zoo_mesh
     from ..train.find_direction import DirectionEngine
 
     engine = DirectionEngine(params, cfg, styles_array, clip_models,
@@ -312,8 +324,10 @@ def _sweep(params, cfg, styles_array, clip_models, arcface_params, fdc,
                 for tag, d in zip(tags, dirs):
                     save(f"direction_last_{tag}.npz", d)
 
+        bmesh = cli_zoo_mesh(data_parallel, len(prompts), fdc.batch_size,
+                             dev)
         directions, info = engine.optimize_batch(
-            prompts, negative_text_prompts=negatives,
+            prompts, negative_text_prompts=negatives, mesh=bmesh,
             resume_directions=_resolve_zoo_resume(resume, prompts),
             callback=zoo_callback)
         for tag, d in zip(tags, directions.cpu().numpy()):
@@ -321,7 +335,8 @@ def _sweep(params, cfg, styles_array, clip_models, arcface_params, fdc,
         steady = info.get("steady_ms_per_step")
         print(f"{len(prompts)} prompts in one batched run: "
               f"{info['time']:.1f} s"
-              + (f" ({steady:.0f} ms/step steady)" if steady else ""))
+              + (f" ({steady:.0f} ms/step steady)" if steady else "")
+              + (f", mesh {bmesh.shape}" if bmesh is not None else ""))
         return
     for i, (prompt, tag) in enumerate(zip(prompts, tags)):
         tp = time.time()

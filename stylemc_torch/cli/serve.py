@@ -244,9 +244,15 @@ def build_server(editor, host: str = "127.0.0.1", port: int = 8080,
               help="merge concurrent same-parameter requests arriving "
                    "within this window into one batched dispatch; 0 "
                    "disables (serial lock)")
+@click.option("--data_parallel", is_flag=True, default=False,
+              help="shard request batches over all local devices "
+                   "(1-axis data mesh; buckets smaller than the mesh run "
+                   "replicated)")
 @click.option("--device", default="cuda", show_default=True)
 def main(network, direction, directions, mapper, e4e_ckpt, host, port,
-         max_batch, precision, warmup, coalesce_ms, device):
+         max_batch, precision, warmup, coalesce_ms, data_parallel, device):
+    from ..device import resolve_device
+    from ..parallel.mesh import cli_mesh
     from ..serve import BatchEditor
 
     zoo = {}
@@ -255,10 +261,15 @@ def main(network, direction, directions, mapper, e4e_ckpt, host, port,
         if not path:
             raise click.BadParameter(f"expected NAME=PATH, got {entry!r}")
         zoo[name] = path
+    device = resolve_device(device)
+    mesh = cli_mesh(data_parallel, max_batch, device)
+    if mesh is not None:
+        print(f"data-parallel serving over {mesh.size} devices")
     editor = BatchEditor.from_files(network, direction=direction,
                                     mapper=mapper, directions=zoo or None,
                                     e4e_ckpt=e4e_ckpt, max_batch=max_batch,
-                                    precision=precision, device=device)
+                                    precision=precision, mesh=mesh,
+                                    device=device)
     if warmup:
         print("warming up (every batch bucket)...")
         editor.warmup()

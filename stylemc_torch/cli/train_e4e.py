@@ -65,8 +65,8 @@ MOCO_SEED = 2
 @click.option("--delta_norm", default=2, show_default=True)
 @click.option("--delta_norm_lambda", default=2e-4, show_default=True)
 @click.option("--data_parallel", is_flag=True, default=False,
-              help="split batches over the visible cards; one card runs as "
-                   "without it")
+              help="shard the batch over all local devices (1-axis data "
+                   "mesh; one card or the CPU runs as without it)")
 @click.option("--progressive_start", type=int, default=None)
 @click.option("--progressive_step_every", default=2000, show_default=True)
 @click.option("--resume_training_from_ckpt", type=str, default=None)
@@ -109,15 +109,12 @@ def main(exp_dir, dataset_type, encoder_type, source_root, test_root,
     from ..losses.lpips import init_lpips_params
     from ..models.e4e.encoders import init_encoder_params, style_count
     from ..models.e4e.psp import PSP, PSPConfig, load_psp_from_checkpoint
+    from ..parallel.mesh import cli_mesh
     from ..train.coach import Coach, CoachOptions
     from ..utils.model_zoo import load_arcface
 
     dev = resolve_device(device)
     disable_tf32(dev)
-    if data_parallel and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "--data_parallel over several cards is not ported yet "
-            "(ROADMAP A17)")
     os.makedirs(exp_dir, exist_ok=True)
     opts = CoachOptions(
         dataset_type=dataset_type, encoder_type=encoder_type,
@@ -219,7 +216,11 @@ def main(exp_dir, dataset_type, encoder_type, source_root, test_root,
         test_ds = ImagesDataset(test_root, size=256)
         test_iter = batch_iterator(test_ds, test_batch_size, shuffle=False)
 
-    coach = Coach(opts, psp, perception, train_iter, test_iter, device=dev)
+    mesh = cli_mesh(data_parallel, batch_size, dev)
+    if mesh is not None:
+        print(f"data-parallel training over {mesh.size} devices")
+    coach = Coach(opts, psp, perception, train_iter, test_iter, mesh=mesh,
+                  device=dev)
     if resume_training_from_ckpt:
         coach.load_checkpoint(resume_training_from_ckpt)
 

@@ -6,7 +6,9 @@ Same flags, defaults, console lines and output files as the JAX CLI:
 reference's names; spaces in the prompt turned into underscores),
 mapper_last.pth at iterations 990, 1990, ..., and the run log
 wandb_log.jsonl. Runs on --device (cuda unless told otherwise);
---data_parallel runs on one card (multi-GPU training is ROADMAP A17).
+--data_parallel (on by default) splits each step's batch over the
+process's cards (`data_mesh(max_size=batch_size)`); on one card or the
+CPU it trains as without it.
 
   python -m stylemc_torch.cli.train_latent_mapper --network ffhq.pkl \
       --s_input out/input.npz --outdir out --text_prompt "a smiling face"
@@ -48,8 +50,8 @@ import numpy as np
 @click.option("--arcface_weights", type=str, default=None)
 @click.option("--allow_random_init", is_flag=True, default=False)
 @click.option("--data_parallel/--no-data_parallel", default=True,
-              help="Accepted; training runs on one card (multi-GPU is "
-                   "ROADMAP A17)")
+              help="Shard each step's batch over all local CUDA devices "
+                   "(1-axis data mesh)")
 @click.option("--bf16", is_flag=True, default=False,
               help="bfloat16 synthesis on the top num_fp16_res blocks")
 @click.option("--remat", is_flag=True, default=False,
@@ -66,6 +68,7 @@ def main(network_pkl, network2_pkl, noise_mode, s_input, outdir, text_prompt,
     from ..device import resolve_device
     from ..io import load_generator
     from ..models.mapper import load_mapper, save_mapper
+    from ..parallel.mesh import cli_mesh
     from ..train.latent_mapper import MapperTrainConfig, train_latent_mapper
     from ..utils.logging import RunLogger
     from ..utils.model_zoo import load_arcface, load_clip_models
@@ -128,11 +131,14 @@ def main(network_pkl, network2_pkl, noise_mode, s_input, outdir, text_prompt,
         if it % 1000 == 990:
             save_mapper(mapper, f"{outdir}/mapper_last.pth")
 
+    mesh = cli_mesh(data_parallel, batch_size, dev)
+    if mesh is not None:
+        print(f"data-parallel training over {mesh.size} devices")
     t1 = time.time()
     mapper, info = train_latent_mapper(
         params, cfg, styles_array, clip_models, arcface_params, mtc,
-        tokenizer=tokenizer, gen2=gen2, resume_params=resume_params,
-        callback=callback)
+        tokenizer=tokenizer, mesh=mesh, gen2=gen2,
+        resume_params=resume_params, callback=callback)
 
     save_mapper(mapper, f"{outdir}/mapper_{prompt_tag}.pth")
     steady = info.get("steady_ms_per_step")

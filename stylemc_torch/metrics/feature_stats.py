@@ -56,16 +56,14 @@ class FeatureStats:
             self.raw_cov += x64.T @ x64
 
     def append_multihost(self, x):
-        """Append this process's features. The gather across processes is
-        not ported (ROADMAP A17): with a torch.distributed group of more
-        than one process this raises rather than count one rank's share."""
-        if torch.distributed.is_available() and \
-                torch.distributed.is_initialized() and \
-                torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "gathering metric features across processes is not ported "
-                "yet (ROADMAP A17)")
-        self.append(x)
+        """Append the features of every process of the torch.distributed
+        group, process-major (each passes the same number of rows); under
+        one process, `append`."""
+        from ..parallel.mesh import all_gather_rows
+
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        self.append(all_gather_rows(np.asarray(x, np.float32)))
 
     def get_all(self) -> np.ndarray:
         assert self.capture_all

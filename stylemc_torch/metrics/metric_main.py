@@ -26,6 +26,7 @@ import torch
 from ..convert import as_float32
 from ..device import resolve_device
 from ..io.pickle_loader import EasyDict
+from ..parallel.mesh import as_mesh, replicate, shard_batch
 from .feature_stats import FeatureStats
 from .scores import (fid_from_stats, kid_from_features,
                      inception_score_from_probs,
@@ -72,6 +73,10 @@ class MetricOptions:
     # [batch_size, z_dim] for the generator, of (z0, z1, t) for PPL
     z_batches: Optional[Callable[[], Iterator]] = None
     ppl_batches: Optional[Callable[[], Iterator]] = None
+    # a 1-axis parallel.DataMesh: each generator batch (and PPL's pairs)
+    # splits over its devices, the images assembled on `device` in batch
+    # order; batch_size must divide over it
+    mesh: Any = None
 
 
 def z_stream(opts: MetricOptions) -> Iterator[torch.Tensor]:
@@ -91,13 +96,25 @@ def _gen_images(opts: MetricOptions, n: int):
     dev = resolve_device(opts.device)
     stream = opts.z_batches() if opts.z_batches is not None else \
         z_stream(opts)
+
+    def render(gp, z):
+        s = w_to_s(gp, opts.gen_cfg, mapping(gp, opts.gen_cfg, z))
+        return to_u8_nhwc(synthesis(gp, opts.gen_cfg, s))
+
+    mesh = as_mesh(opts.mesh)
+    if mesh is not None:
+        assert opts.batch_size % mesh.size == 0, \
+            f"batch_size {opts.batch_size} must divide over {mesh.size} devices"
+        params = replicate(opts.gen_params, mesh)
     done = 0
     while done < n:
         with torch.no_grad():
             z = as_float32(next(stream), dev)
-            ws = mapping(opts.gen_params, opts.gen_cfg, z)
-            s = w_to_s(opts.gen_params, opts.gen_cfg, ws)
-            imgs = to_u8_nhwc(synthesis(opts.gen_params, opts.gen_cfg, s))
+            if mesh is None:
+                imgs = render(opts.gen_params, z)
+            else:
+                imgs = torch.cat([render(params[d], zk).to(dev) for d, zk in
+                                  zip(mesh.devices, shard_batch(mesh, z))])
         take = min(opts.batch_size, n - done)
         done += take
         if opts.progress_fn:
@@ -201,7 +218,7 @@ def ppl2_wend(opts):
                       batch_size=opts.batch_size, seed=opts.seed,
                       gen_params=opts.gen_params,
                       latents=opts.ppl_batches() if opts.ppl_batches
-                      else None, device=opts.device)
+                      else None, device=opts.device, mesh=opts.mesh)
     return {"ppl2_wend": ppl}
 
 

@@ -16,6 +16,7 @@ import torch
 from ..convert import as_float32
 from ..device import DeviceLike, resolve_device
 from ..losses.lpips import lpips_distances
+from ..parallel.mesh import as_mesh, replicate, shard_batch
 
 
 def slerp(a, b, t):
@@ -52,17 +53,24 @@ def compute_ppl(mapping_fn: Callable, synthesis_fn: Callable,
                 crop: bool = False, batch_size: int = 8,
                 seed: int = 0, gen_params=None,
                 latents: Optional[Iterable] = None,
-                device: DeviceLike = None) -> float:
+                device: DeviceLike = None, mesh=None) -> float:
     """mapping_fn(gen_params, z) → ws; synthesis_fn(gen_params, ws) → images
     in [-1, 1]. `latents` is a stream of (z0, z1, t) batches (by default
     `ppl_latents(z_dim, batch_size, sampling, seed)`); the pairs run on
-    `device` (cuda unless the caller says otherwise)."""
+    `device` (cuda unless the caller says otherwise). mesh: a 1-axis
+    `parallel.DataMesh` over which each batch of pairs splits (batch_size
+    must divide over it), the weights replicated per device."""
     dev = resolve_device(device)
+    mesh = as_mesh(mesh)
+    if mesh is not None:
+        assert batch_size % mesh.size == 0, (batch_size, mesh.size)
+        replicas = replicate((gen_params, lpips_params), mesh)
     if latents is None:
         latents = ppl_latents(z_dim, batch_size, sampling, seed)
     stream = iter(latents)
 
-    def pair_distance(z0, z1, t):
+    def pair_distance(z0, z1, t, gen_params=gen_params,
+                      lpips_params=lpips_params):
         if space == "w":
             w0 = mapping_fn(gen_params, z0)
             w1 = mapping_fn(gen_params, z1)
@@ -90,7 +98,13 @@ def compute_ppl(mapping_fn: Callable, synthesis_fn: Callable,
     with torch.no_grad():
         for _ in range(0, num_samples, batch_size):
             z0, z1, t = (as_float32(v, dev) for v in next(stream))
-            dists.append(pair_distance(z0, z1, t).cpu().numpy())
+            if mesh is None:
+                dists.append(pair_distance(z0, z1, t).cpu().numpy())
+                continue
+            for d, (a, b, c) in zip(mesh.devices,
+                                    zip(*shard_batch(mesh, z0, z1, t))):
+                dists.append(pair_distance(a, b, c, *replicas[d])
+                             .cpu().numpy())
     d = np.concatenate(dists)[:num_samples]
     # the reference keeps the [1 %, 99 %] quantiles
     lo_q = np.percentile(d, 1, method="lower")

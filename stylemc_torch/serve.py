@@ -15,6 +15,13 @@ for each chunk from its own styles):
     editor = BatchEditor.from_files(network="ffhq.npz",
                                     mapper="out/mapper_a_smiling_face.pth")
 
+Several devices (a 1-axis `parallel.DataMesh`): weights replicate once per
+distinct device, and a bucket the mesh size divides renders as one shard
+per device, assembled in request order; a smaller bucket renders on the
+editor's device:
+    editor = BatchEditor.from_files(network="ffhq.npz", direction=...,
+                                    mesh=data_mesh(max_size=64))
+
 Real photos (an e4e inverter attached):
     editor = BatchEditor.from_files(network="decoder.pt", direction=...,
                                     e4e_ckpt="e4e_ffhq_encode.pt")
@@ -39,6 +46,7 @@ from .edit import (N_STYLE_CHANNELS, STYLE_DIM, mapper_directions_batched,
                    to_u8_nhwc)
 from .models.stylegan2.generator import (GeneratorConfig, inference_cfg,
                                          mapping, synthesis, w_to_s)
+from .parallel.mesh import as_mesh, replicate, shard_batch
 
 
 def _apply_precision(cfg: GeneratorConfig, precision: str) -> GeneratorConfig:
@@ -71,13 +79,18 @@ class BatchEditor:
                  mapper_params=None, mapper_neg_slope: float = 0.01,
                  max_batch: int = 64, truncation_psi: float = 0.7,
                  noise_mode: str = "const", precision: str = "fp32",
-                 pipeline_chunk: int = 16, device: DeviceLike = None):
+                 mesh=None, pipeline_chunk: int = 16,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         # forward-only service → pad_dilate up-convs
         self.cfg = inference_cfg(_apply_precision(gen_cfg, precision))
         if precision == "fp32":
             disable_tf32(self.device)
         self.params = params_from_numpy(gen_params, self.device)
+        # mesh: a 1-axis DataMesh; buckets it divides render sharded
+        self.mesh = as_mesh(mesh)
+        self._replicas = None if self.mesh is None else \
+            replicate(self.params, self.mesh)
         self.direction = None if direction is None else self._on_device(
             direction)
         # named directions, selected per request
@@ -118,9 +131,26 @@ class BatchEditor:
             return x
         return torch.cat([x, x[-1:].expand(b - n, *x.shape[1:])], dim=0)
 
+    def _sharded_ok(self, n: int) -> bool:
+        return self.mesh is not None and n % self.mesh.size == 0
+
+    def _sharded(self, fn, x: torch.Tensor) -> torch.Tensor:
+        """fn(params, rows) over the mesh when it divides the rows (each
+        shard on its device, the rows back on the editor's device in
+        order), else on the editor's device."""
+        if not self._sharded_ok(x.shape[0]):
+            return fn(self.params, x)
+        return torch.cat([fn(self._replicas[d], xs).to(self.device)
+                          for d, xs in zip(self.mesh.devices,
+                                           shard_batch(self.mesh, x))])
+
     def _render_u8(self, s: torch.Tensor) -> torch.Tensor:
-        return to_u8_nhwc(synthesis(self.params, self.cfg, s,
-                                    noise_mode=self.noise_mode))
+        return self._sharded(lambda gp, x: to_u8_nhwc(synthesis(
+            gp, self.cfg, x, noise_mode=self.noise_mode)), s)
+
+    def _styles_from_z(self, z: torch.Tensor) -> torch.Tensor:
+        return self._sharded(lambda gp, x: w_to_s(gp, self.cfg, mapping(
+            gp, self.cfg, x, truncation_psi=self.truncation_psi)), z)
 
     def add_direction(self, name: str, direction) -> None:
         """Register a named direction for per-request selection."""
@@ -224,9 +254,7 @@ class BatchEditor:
             chunk = torch.from_numpy(zs[lo:lo + self.buckets[-1]]).to(
                 self.device)
             z = self._pad(chunk, self._bucket(chunk.shape[0]))
-            ws = mapping(self.params, self.cfg, z,
-                         truncation_psi=self.truncation_psi)
-            out.append(w_to_s(self.params, self.cfg, ws)[:chunk.shape[0]])
+            out.append(self._styles_from_z(z)[:chunk.shape[0]])
         return torch.cat(out, dim=0)
 
     @torch.inference_mode()

@@ -20,6 +20,14 @@ streams drawn in the JAX package's order.
 
 The coach trains copies of the encoder (and decoder) params on its
 device; read them from `coach.psp`.
+
+With a mesh (`parallel.DataMesh`) the image batch splits over its devices
+in the encoder step, the discriminator step and its R1, and the latent
+sampling: each shard's losses (every one a mean over the batch) and their
+gradients on its device, combined by the shard's share of the rows and
+summed over the process group when one is up; Ranger and Adam then step
+once. The W pools see the whole batch: sampled latents are gathered
+before the query.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ from ..models.e4e.discriminator import (LatentCodesPool, discriminator_apply,
 from ..models.e4e.psp import ENCODERS, PSP
 from ..models.e4e.encoders import style_count
 from ..models.stylegan2.generator import mapping as gen_mapping
+from ..parallel.mesh import (all_gather_rows, as_mesh, data_parallel,
+                             shard_rows, tree_to)
 from .ranger import (apply_updates, clip_by_global_norm, ranger, tree_leaves,
                      tree_map)
 
@@ -292,18 +302,21 @@ class Coach:
       train_decoder). perception: {'lpips': params, 'arcface' | 'moco':
       params}. train_iter / test_iter: callables → (x, y) numpy batches in
       [-1, 1], NCHW. device: cuda unless the caller asks for the CPU; the
-      coach copies psp's params and puts perception's there. mesh: only
-      None (several cards are ROADMAP A17).
+      coach copies psp's params and puts perception's there. mesh: a 1-axis
+      `parallel.DataMesh` over which the batch splits (batch_size must
+      divide over it); the state stays on `device`.
     """
 
     def __init__(self, opts: CoachOptions, psp: PSP,
                  perception: Dict[str, Any],
                  train_iter: Callable, test_iter: Optional[Callable] = None,
                  arcface_layout=None, mesh=None, device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Coach(mesh=...): data parallelism over several cards is not "
-                "ported yet (ROADMAP A17)")
+        self.mesh = as_mesh(mesh)
+        if self.mesh is not None:
+            n_dev = self.mesh.size
+            assert opts.batch_size % n_dev == 0, \
+                f"batch_size {opts.batch_size} must divide over {n_dev} devices"
+        self._replicas: Dict[torch.device, Any] = {}
         dev = resolve_device(device)
         disable_tf32(dev)
         self.device = dev
@@ -393,9 +406,68 @@ class Coach:
 
     # ----------------------------------------------------------- loss graph
 
-    def _calc_loss(self, trainable, x, y, stage, disc_params):
+    def _frozen_on(self, dev):
+        """(psp, perception) on `dev`: the coach's own on its device, else
+        copies made once (the trained params come with each call)."""
+        if dev == self.device:
+            return self.psp, self.perception
+        if dev not in self._replicas:
+            psp = dataclasses.replace(
+                self.psp, encoder_params={},
+                decoder_params={} if self.opts.train_decoder
+                else self.psp.decoder_params)
+            self._replicas[dev] = tree_to((psp, self.perception), dev)
+        return self._replicas[dev]
+
+    def _value_and_grad(self, fn, tree, n: int):
+        """fn(tree, rows, device) → (loss, {name: scalar}) on the batch
+        rows `rows` (each value a mean over them) on `device`. → ({name:
+        value}, the loss's gradient as a tree like `tree`) of the whole
+        batch of n: on the mesh, each shard on its own leaves, combined by
+        its share of the rows. Unused leaves get zeros."""
+        def grads_of(loss, t):
+            return torch.autograd.grad(loss, tree_leaves(t), allow_unused=True,
+                                       materialize_grads=True)
+
+        if self.mesh is None:
+            loss, vals = fn(tree, slice(None), self.device)
+            grads = iter(grads_of(loss, tree))
+            return ({k: torch.as_tensor(v).detach() for k, v in vals.items()},
+                    tree_map(lambda _: next(grads), tree))
+        keys: List[str] = []
+
+        def shard(dev, rows):
+            t = tree_map(lambda p: p.detach().to(dev).requires_grad_(True),
+                         tree)
+            loss, vals = fn(t, rows, dev)
+            keys[:] = list(vals)
+            return [*grads_of(loss, t)] + [torch.as_tensor(vals[k]).detach()
+                                           for k in keys]
+
+        n_leaves = len(tree_leaves(tree))
+        out = data_parallel(self.mesh, n, shard, self.device)
+        grads = iter(out[:n_leaves])
+        return (dict(zip(keys, out[n_leaves:])),
+                tree_map(lambda _: next(grads), tree))
+
+    def _map_rows(self, fn, *xs):
+        """fn(device, *row blocks) → a tuple of per-row tensors; on the
+        mesh, each shard on its device and the rows gathered in batch
+        order on the coach's device (across the process group too)."""
+        if self.mesh is None:
+            return fn(self.device, *xs)
+        parts = [fn(d, *(x[rows].to(d) for x in xs))
+                 for d, rows in shard_rows(self.mesh, xs[0].shape[0])]
+        return tuple(all_gather_rows(torch.cat([p[i].to(self.device)
+                                                for p in parts]))
+                     for i in range(len(parts[0])))
+
+    def _calc_loss(self, trainable, x, y, stage, disc_params, frozen=None):
         """→ (loss, (loss dict, y_hat, latent)): the encoder's loss on one
-        batch, differentiable to `trainable`."""
+        batch, differentiable to `trainable`. frozen: (psp, perception) on
+        x's device (`_frozen_on`); by default the coach's own."""
+        base, perception = frozen if frozen is not None else (
+            self.psp, self.perception)
         opts = self.opts
         enc_params = trainable["encoder"]
         x_enc = x
@@ -405,8 +477,8 @@ class Coach:
                                   enc_params)
             x_enc = x.to(torch.bfloat16)
         psp = dataclasses.replace(
-            self.psp, encoder_params=enc_params,
-            decoder_params=trainable.get("decoder", self.psp.decoder_params))
+            base, encoder_params=enc_params,
+            decoder_params=trainable.get("decoder", base.decoder_params))
         codes = psp.encode(x_enc, progressive_stage=stage).float()
         y_hat = psp.decode(codes, resize=True, noise_mode="const")
         if opts.dataset_type == "cars_encode":
@@ -437,7 +509,6 @@ class Coach:
             loss_dict["total_delta_loss"] = total_delta
             loss = loss + opts.delta_norm_lambda * total_delta
 
-        perception = self.perception
         if opts.perception_bf16:
             yp_hat, yp, xq = (t.to(torch.bfloat16) for t in (y_hat, y, x))
         else:
@@ -473,15 +544,16 @@ class Coach:
         """The encoder step's loss dict (detached) and the gradient of its
         loss with respect to each trainable leaf, as a tree like
         `_trainable()`."""
-        trainable = self._trainable()
-        loss, (loss_dict, _, _) = self._calc_loss(
-            trainable, x, y, stage, self.discriminator_params)
-        leaves = tree_leaves(trainable)
+        disc = self.discriminator_params
+
+        def fn(trainable, rows, dev):
+            loss, (loss_dict, _, _) = self._calc_loss(
+                trainable, x[rows].to(dev), y[rows].to(dev), stage,
+                tree_to(disc, dev), self._frozen_on(dev))
+            return loss, loss_dict
+
         # the heads of rows past the progressive stage get zeros
-        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
-                                         materialize_grads=True))
-        return ({k: v.detach() for k, v in loss_dict.items()},
-                tree_map(lambda _: next(grads), trainable))
+        return self._value_and_grad(fn, self._trainable(), x.shape[0])
 
     # -------------------------------------------------------- discriminator
 
@@ -503,21 +575,26 @@ class Coach:
 
     def _d_step(self, real_w, fake_w, regularize: bool):
         dp = self.discriminator_params
-        leaves = tree_leaves(dp)
-        loss, (rl, fl) = self._d_loss(dp, real_w, fake_w)
-        grads = iter(torch.autograd.grad(loss, leaves))
-        self.d_optimizer.step(dp, tree_map(lambda _: next(grads), dp))
-        out = {"discriminator_loss": loss.detach(), "d_real_loss": rl.detach(),
-               "d_fake_loss": fl.detach()}
+        n = real_w.shape[0]
+
+        def d_fn(p, rows, dev):
+            loss, (rl, fl) = self._d_loss(p, real_w[rows].to(dev),
+                                          fake_w[rows].to(dev))
+            return loss, {"discriminator_loss": loss, "d_real_loss": rl,
+                          "d_fake_loss": fl}
+
+        out, grads = self._value_and_grad(d_fn, dp, n)
+        self.d_optimizer.step(dp, grads)
         if regularize:
-            # on the discriminator the step above updated
-            r1_loss = self._r1_loss(dp, real_w)
-            # ∇_w D does not depend on the biases: their gradients are 0
-            grads = iter(torch.autograd.grad(r1_loss, leaves,
-                                             allow_unused=True,
-                                             materialize_grads=True))
-            self.d_optimizer.step(dp, tree_map(lambda _: next(grads), dp))
-            out["discriminator_r1_loss"] = r1_loss.detach()
+            # on the discriminator the step above updated; ∇_w D does not
+            # depend on the biases: their gradients are 0
+            def r1_fn(p, rows, dev):
+                r1 = self._r1_loss(p, real_w[rows].to(dev))
+                return r1, {"discriminator_r1_loss": r1}
+
+            r1, grads = self._value_and_grad(r1_fn, dp, n)
+            self.d_optimizer.step(dp, grads)
+            out.update(r1)
         return out
 
     def _encoder_forward(self, enc_params, x, stage: int):
@@ -535,13 +612,19 @@ class Coach:
         row), both detached."""
         z = self._to_device(self._rng.randn(x.shape[0], 512))
         stage = self.progressive_stage()
+        psp = self.psp
+
+        def sample(dev, z, x):
+            real_w = gen_mapping(tree_to(psp.decoder_params, dev),
+                                 psp.decoder_cfg, z)[:, 0, :]
+            fake_w = self._encoder_forward(tree_to(psp.encoder_params, dev),
+                                           x, stage)
+            if psp.cfg.start_from_latent_avg and psp.latent_avg is not None:
+                fake_w = fake_w + psp.latent_avg[None].to(dev, fake_w.dtype)
+            return real_w, fake_w
+
         with torch.no_grad():
-            real_w = gen_mapping(self.psp.decoder_params, self.psp.decoder_cfg,
-                                 z)[:, 0, :]
-            fake_w = self._encoder_forward(self.psp.encoder_params, x, stage)
-            if (self.psp.cfg.start_from_latent_avg
-                    and self.psp.latent_avg is not None):
-                fake_w = fake_w + self.psp.latent_avg[None].to(fake_w.dtype)
+            real_w, fake_w = self._map_rows(sample, z, x)
         if self.opts.progressive_steps:
             fake_w = fake_w[:, self.get_dims_to_discriminate(), :]
         if self.opts.use_w_pool:
@@ -694,6 +777,7 @@ class Coach:
             meta = state = load_numpy_pickle(path)
         self.global_step = int(meta["global_step"])
         self.best_val_loss = meta["best_val_loss"]
+        self._replicas.clear()
         _copy_into(self.psp.encoder_params, state["encoder_params"])
         _copy_into(self.psp.decoder_params, state["decoder_params"])
         if state.get("latent_avg") is not None:

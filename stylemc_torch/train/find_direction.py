@@ -31,6 +31,15 @@ each prompt's Δs edits its own copy of the batch's styles, one synthesis
 call renders all P·B images, CLIP and ArcFace take them together, and the
 loss is the sum of the P per-prompt losses, so each prompt's Δs gets its
 own gradient (the prompts share no parameter).
+
+Data parallelism (`parallel.mesh`), as the JAX package's mesh paths:
+`find_direction(mesh=)` splits each step's batch rows over the mesh
+devices (`_dp_step`): each shard's loss and Δs gradient on its device,
+combined into the full batch's values by the shard's share of the rows
+(every term of the loss is a mean over the batch's images), summed over
+the process group when one is up. `optimize_batch(mesh=)` shards the
+prompts over a 1-axis mesh, or over 'prompt' with each group's batch over
+'data' on a 2-axis one.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from ..models.clip import encode_image, tokenize, unprocess
 from ..models.stylegan2.generator import (
     N_STYLE_CHANNELS, S_TRAINABLE_SPACE_CHANNELS, STYLE_DIM, GeneratorConfig,
     synthesis)
+from ..parallel.mesh import DataMesh, as_mesh, data_parallel, tree_to
 
 TRAINABLE = list(S_TRAINABLE_SPACE_CHANNELS)
 
@@ -466,6 +476,38 @@ def _sgd_step(loss_fn, bank, delta_s, idx, lr, text_dirs=None):
             grad_norm)
 
 
+def _dp_step(loss_fns, bank, mesh: DataMesh, delta_s, idx, lr,
+             text_dirs=None):
+    """`_sgd_step` with the batch rows `idx` split over the mesh (and the
+    process group): loss_fns maps each mesh device to the loss on its
+    replicas. Each shard's loss, aux and Δs gradient (of its rows' mean)
+    are combined into the full batch's on Δs's device; the grad norm is
+    that of the combined gradient."""
+    styles, id_all, clip_all, refs = bank
+    keys: List[str] = []
+
+    def shard(dev, rows):
+        i = idx[rows]
+        dl = delta_s.detach().to(dev).requires_grad_(True)
+        loss, aux = loss_fns[dev](
+            dl, styles[i].to(dev), id_all[i].to(dev),
+            tuple(c[i].to(dev) for c in clip_all),
+            None if refs is None else tuple(t[i].to(dev) for t in refs),
+            tree_to(text_dirs, dev))
+        g, = torch.autograd.grad(loss.sum(), dl)
+        keys[:] = list(aux)
+        return [loss.detach(), g] + [torch.as_tensor(aux[k]).detach()
+                                     for k in keys]
+
+    loss, grads, *aux = data_parallel(mesh, idx.shape[0], shard,
+                                      delta_s.device)
+    with torch.no_grad():
+        new = delta_s.detach() + float(np.float32(-lr)) * grads
+        grad_norm = torch.linalg.vector_norm(
+            grads.reshape(*loss.shape, -1), dim=-1)
+    return new, loss, dict(zip(keys, aux)), grad_norm
+
+
 def _sgd_loop(delta_s, step, n_items: int, fdc: FindDirectionConfig,
               after_step: Optional[Callable] = None,
               device: Optional[torch.device] = None):
@@ -515,12 +557,17 @@ def find_direction(gen_params, gen_cfg: GeneratorConfig, styles_array,
                    clip_models: Dict[str, Tuple], arcface_params,
                    fdc: FindDirectionConfig,
                    tokenizer=None,
+                   mesh: Optional[DataMesh] = None,
                    resume_direction: Optional[np.ndarray] = None,
                    callback: Optional[Callable] = None,
                    landmarks_metric_fn: Optional[Callable] = None,
                    landmarker=None):
     """Run the optimization on the device that holds `gen_params`. Returns
     (direction [1, 26, 512] tensor on that device, info).
+
+    mesh: a 1-axis `parallel.DataMesh`; each step's batch splits over its
+    devices (fdc.batch_size must divide over them and the process group),
+    the models replicated once per distinct device (`_dp_step`).
 
     styles_array: [n_items, 26, 512]; clip_models: {'ViT-B/32': (cfg,
     params)}. callback(iteration, loss, aux, lr, grad_norm, direction
@@ -556,9 +603,21 @@ def find_direction(gen_params, gen_cfg: GeneratorConfig, styles_array,
 
     loss_fn = make_loss_fn(gen_params, gen_cfg, bundles, arcface_params, fdc,
                            mobilenet_params=mobilenet_params)
-    step = functools.partial(
-        _sgd_step, loss_fn,
-        (styles_array, id_feats_orig_all, clip_feats_orig_all, refs))
+    bank = (styles_array, id_feats_orig_all, clip_feats_orig_all, refs)
+    mesh = as_mesh(mesh)
+    if mesh is None:
+        step = functools.partial(_sgd_step, loss_fn, bank)
+    else:
+        models = (gen_params, bundles, arcface_params, mobilenet_params)
+
+        def build(d):
+            gp, bs, arc, mob = tree_to(models, d)
+            return make_loss_fn(gp, gen_cfg, bs, arc, fdc,
+                                mobilenet_params=mob)
+
+        step = functools.partial(
+            _dp_step, {d: loss_fn if d == dev else build(d)
+                       for d in mesh.distinct}, bank, mesh)
 
     def after_step(it, total, lr, idx, delta_s, loss, aux, grad_norm):
         if callback is None or (it % 10 != 0 and it != total):
@@ -618,11 +677,53 @@ class DirectionEngine:
         self.id_feats, self.clip_feats = precompute_original_features(
             gen_params, gen_cfg, self.styles_array, self.bundles,
             arcface_params, fdc)
+        self._gen = (gen_params, gen_cfg, arcface_params)
+        self._bank = (self.styles_array, self.id_feats, self.clip_feats, None)
+        self._loss_fns = {self.device: make_loss_fn(
+            gen_params, gen_cfg, self.bundles, arcface_params, fdc)}
+        self._banks = {self.device: self._bank}
         self._step = functools.partial(
-            _sgd_step,
-            make_loss_fn(gen_params, gen_cfg, self.bundles, arcface_params,
-                         fdc),
-            (self.styles_array, self.id_feats, self.clip_feats, None))
+            _sgd_step, self._loss_fns[self.device], self._bank)
+
+    def _loss_fn_on(self, dev: torch.device):
+        """The loss on `dev`'s replicas of the models, and the bank on
+        `dev`, each made once."""
+        if dev not in self._loss_fns:
+            gp, cfg, arc = self._gen
+            gp, bundles, arc = tree_to((gp, self.bundles, arc), dev)
+            self._loss_fns[dev] = make_loss_fn(gp, cfg, bundles, arc,
+                                               self.fdc)
+            self._banks[dev] = tree_to(self._bank, dev)
+        return self._loss_fns[dev]
+
+    def _mesh_step(self, mesh: DataMesh, text_dirs, deltas, idx, lr):
+        """One step of P prompts sharded over the mesh: prompt group g
+        (P / groups prompts) on its device, unsharded on a 1-axis mesh,
+        its batch over the group's 'data' devices on a 2-axis one; the
+        groups share no collective. → `_sgd_step`'s outputs, concatenated
+        over the prompts on Δs's device."""
+        groups = mesh.prompt_groups()
+        per = deltas.shape[0] // len(groups)
+        outs = []
+        for g, sub in enumerate(groups):
+            d = mesh.group_device(g)
+            rows = slice(g * per, (g + 1) * per)
+            td = tuple({k: v[rows] for k, v in t.items()} for t in text_dirs)
+            if sub is None:
+                out = _sgd_step(self._loss_fn_on(d), self._banks[d],
+                                deltas[rows].to(d), idx.to(d), lr,
+                                tree_to(td, d))
+            else:
+                fns = {x: self._loss_fn_on(x) for x in sub.distinct}
+                out = _dp_step(fns, self._bank, sub, deltas[rows].to(d), idx,
+                               lr, td)
+            outs.append(out)
+        dev = deltas.device
+        return (torch.cat([o[0].to(dev) for o in outs]),
+                torch.cat([o[1].to(dev) for o in outs]),
+                {k: torch.cat([o[2][k].to(dev) for o in outs])
+                 for k in outs[0][2]},
+                torch.cat([o[3].to(dev) for o in outs]))
 
     def _text_dirs(self, text_prompt: str, negative_text_prompt: str):
         """One anchor dict per bundle for the prompt pair."""
@@ -680,14 +781,26 @@ class DirectionEngine:
         callback(iteration, losses, aux arrays, lr, directions [P, 1, 26,
         512] numpy) every 10 iterations.
 
+        mesh: a `parallel.DataMesh`. On a 1-axis mesh the prompts shard
+        over its devices (the prompt count must divide over them); on a
+        2-axis ('prompt', 'data') mesh (`zoo_mesh`) over 'prompt', and
+        each group's image batch over 'data' (fdc.batch_size must divide
+        over it). The prompts share no collective.
+
         → (directions [P, 1, 26, 512], info); info["history"] is [P,
-        steps]. `mesh` (sharding prompts over devices) is not ported."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "optimize_batch over a device mesh is not ported (ROADMAP "
-                "A17: multi-GPU); the port trains on one card")
+        steps]."""
+        mesh = as_mesh(mesh)
         fdc = self.fdc
         P = len(text_prompts)
+        if mesh is not None:
+            p_axis = "prompt" if "prompt" in mesh.axis_names \
+                else mesh.axis_names[0]
+            n_p = mesh.shape[p_axis]
+            assert P % n_p == 0, f"{P} prompts over {n_p} '{p_axis}' shards"
+            if "prompt" in mesh.axis_names:
+                assert fdc.batch_size % mesh.shape["data"] == 0, (
+                    f"batch {fdc.batch_size} over {mesh.shape['data']} "
+                    "'data' shards")
         if negative_text_prompts is None:
             negative_text_prompts = [fdc.negative_text_prompt] * P
         if len(negative_text_prompts) != P:
@@ -716,9 +829,11 @@ class DirectionEngine:
                          {k: v.cpu().numpy() for k, v in aux.items()}, lr,
                          assemble_direction(deltas).cpu().numpy())
 
-        deltas, hist, info = _sgd_loop(
-            deltas, functools.partial(self._step, text_dirs=text_dirs),
-            self.n_items, fdc, after_step)
+        step = functools.partial(self._step, text_dirs=text_dirs) \
+            if mesh is None else \
+            functools.partial(self._mesh_step, mesh, text_dirs)
+        deltas, hist, info = _sgd_loop(deltas, step, self.n_items, fdc,
+                                       after_step)
         info["history"] = hist.T if len(hist) else np.zeros((P, 0),
                                                             np.float32)
         info["prompts"] = list(text_prompts)

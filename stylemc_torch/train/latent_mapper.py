@@ -9,6 +9,11 @@ Adam and optax's compute the same update (bias correction in both). The
 batch stream is find_direction's: one `np.random.RandomState(seed)` draw
 per step. Every model but the mapper is frozen, so the backward pass runs
 B2 through the ToRGB chain of the edited render.
+
+With a mesh (`parallel.DataMesh`) each step's batch rows split over its
+devices: each shard's loss and the gradient of its rows' mean to the 20
+weights on its device, combined by the shard's share of the rows (summed
+over the process group when one is up), then one Adam step.
 """
 
 from __future__ import annotations
@@ -16,12 +21,13 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from ..models.mapper import as_mapper, init_mapper_params, mapper_apply
 from ..models.stylegan2.generator import GeneratorConfig
+from ..parallel.mesh import DataMesh, as_mesh, data_parallel, tree_to
 from .find_direction import (
     FindDirectionConfig, _freeze, _sgd_loop, _styles_on, assemble_direction,
     make_clip_bundles, make_loss_fn, precompute_original_features,
@@ -43,13 +49,16 @@ class MapperTrainConfig(FindDirectionConfig):
     mapper_neg_slope: float = 0.01
 
 
-def make_mapper_edit(neg_slope: float) -> Callable:
+def make_mapper_edit(neg_slope: float, template=None) -> Callable:
     """The mapper's edit, an `edit_fn` of `make_loss_fn`:
     styles2[:, TRAINABLE] = styles[:, TRAINABLE] + mapper(styles[:,
-    TRAINABLE])."""
+    TRAINABLE]). The mapper is a Mapper, or a {name: tensor} dict of its
+    weights applied through `template`'s structure."""
     def edit_fn(mapper, styles):
-        return styles + assemble_direction(
-            mapper_apply(mapper, styles[:, TRAINABLE], neg_slope))
+        x = styles[:, TRAINABLE]
+        delta = torch.func.functional_call(template, mapper, (x, neg_slope)) \
+            if isinstance(mapper, dict) else mapper_apply(mapper, x, neg_slope)
+        return styles + assemble_direction(delta)
     return edit_fn
 
 
@@ -74,6 +83,41 @@ def _adam_step(loss_fn, bank, opt, mapper, idx, lr):
             grad_norm)
 
 
+def _dp_adam_step(loss_fns, bank, mesh: DataMesh, opt, mapper, idx, lr):
+    """`_adam_step` with the batch rows `idx` split over the mesh: each
+    shard takes the mapper's weights on its device; the combined
+    gradients feed one Adam step."""
+    styles, id_all, clip_all, refs = bank
+    names = [n for n, _ in mapper.named_parameters()]
+    params = [p for _, p in mapper.named_parameters()]
+    keys: List[str] = []
+
+    def shard(dev, rows):
+        i = idx[rows]
+        leaves = [p.detach().to(dev).requires_grad_(True) for p in params]
+        loss, aux = loss_fns[dev](
+            dict(zip(names, leaves)), styles[i].to(dev), id_all[i].to(dev),
+            tuple(c[i].to(dev) for c in clip_all),
+            None if refs is None else tuple(t[i].to(dev) for t in refs))
+        grads = torch.autograd.grad(loss, leaves)
+        keys[:] = list(aux)
+        return [loss.detach(), *grads] + [torch.as_tensor(aux[k]).detach()
+                                          for k in keys]
+
+    out = data_parallel(mesh, idx.shape[0], shard, params[0].device)
+    loss, grads, aux = out[0], out[1:1 + len(params)], out[1 + len(params):]
+    for group in opt.param_groups:
+        group["lr"] = lr
+    with torch.no_grad():
+        grad_norm = sum(torch.linalg.vector_norm(g) for g in grads)
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+    for p in params:
+        p.grad = None
+    return mapper, loss, dict(zip(keys, aux)), grad_norm
+
+
 def train_latent_mapper(gen_params, gen_cfg: GeneratorConfig, styles_array,
                         clip_models: Dict[str, Tuple], arcface_params,
                         mtc: MapperTrainConfig,
@@ -91,10 +135,9 @@ def train_latent_mapper(gen_params, gen_cfg: GeneratorConfig, styles_array,
     `init_mapper_params` from a CPU generator seeded with mtc.seed.
     callback(it, loss, aux, lr, grad_norm, mapper) every 10 iterations.
     mtc.landmarks_in_graph needs `landmarker` (cv.landmarks.Landmarker), as
-    in find_direction."""
-    if mesh is not None:
-        raise ValueError("multi-device mapper training is not ported "
-                         "(ROADMAP A17); pass mesh=None")
+    in find_direction. mesh: a 1-axis `parallel.DataMesh` over which each
+    step's batch splits (mtc.batch_size must divide over it)."""
+    mesh = as_mesh(mesh)
     if mtc.landmarks_in_graph and landmarker is None:
         raise ValueError("landmarks_in_graph needs a landmarker "
                          "(MTCNN and MobileNet weights)")
@@ -122,15 +165,26 @@ def train_latent_mapper(gen_params, gen_cfg: GeneratorConfig, styles_array,
                                     device=dev)
     mapper.requires_grad_(True)
 
+    edit_fn = make_mapper_edit(mtc.mapper_neg_slope, template=mapper)
     loss_fn = make_loss_fn(gen_params, gen_cfg, bundles, arcface_params, mtc,
-                           edit_fn=make_mapper_edit(mtc.mapper_neg_slope),
-                           edit_gen=gen2,
+                           edit_fn=edit_fn, edit_gen=gen2,
                            mobilenet_params=mobilenet_params)
     opt = torch.optim.Adam(mapper.parameters(), lr=mtc.learning_rate,
                            betas=(0.9, 0.999), eps=1e-8)
-    step = functools.partial(
-        _adam_step, loss_fn,
-        (styles_array, id_feats_orig_all, clip_feats_orig_all, refs), opt)
+    bank = (styles_array, id_feats_orig_all, clip_feats_orig_all, refs)
+    if mesh is None:
+        step = functools.partial(_adam_step, loss_fn, bank, opt)
+    else:
+        models = (gen_params, bundles, arcface_params, gen2, mobilenet_params)
+
+        def build(d):
+            gp, bs, arc, g2, mob = tree_to(models, d)
+            return make_loss_fn(gp, gen_cfg, bs, arc, mtc, edit_fn=edit_fn,
+                                edit_gen=g2, mobilenet_params=mob)
+
+        step = functools.partial(
+            _dp_adam_step, {d: loss_fn if d == dev else build(d)
+                            for d in mesh.distinct}, bank, mesh, opt)
 
     def after_step(it, total, lr, idx, m, loss, aux, grad_norm):
         if callback is not None and it % 10 == 0:

@@ -191,7 +191,8 @@ def test_engine_refuses_what_jax_refuses(setup):  # noqa: F811
         tfd.DirectionEngine(gp, cfg, styles[:4], tclips, tarc,
                             _fdc(tfd, landmarks_in_graph=True))
     _, t = _engines(setup, n_items=4, with_jax=False)
-    with pytest.raises(NotImplementedError, match="A17"):
+    # a mesh is a parallel.DataMesh (test_torch_parallel.py runs them)
+    with pytest.raises(TypeError, match="DataMesh"):
         t.optimize_batch(PROMPTS, mesh=object())
     with pytest.raises(ValueError, match="negative prompts"):
         t.optimize_batch(PROMPTS, negative_text_prompts=[NEG])

@@ -52,7 +52,7 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'stylemc_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'stylemc_tpu'))\n"
         "print(len(sys.modules)); assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -61,8 +61,8 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
     # 49 modules before the e4e slice, which adds 9; the landmarks stack
     # and align_faces add 12
     # the mapper and DeepLab slice adds 5; GAN evaluation, the warp tools
-    # and LPIPS add 13; e4e training adds 10
-    assert len(_modules()) >= 98
+    # and LPIPS add 13; e4e training adds 10; data parallelism adds 4
+    assert len(_modules()) >= 102
     for m in ("stylemc_torch.ops.kernels.modconv",
               "stylemc_torch.bench.fused_layer_ab",
               "stylemc_torch.bench.timing",
@@ -102,14 +102,17 @@ def test_import_loads_no_jax_and_no_stylemc_tpu():
               "stylemc_torch.models.e4e.discriminator",
               "stylemc_torch.data.configs", "stylemc_torch.io.numpy_pickle",
               "stylemc_torch.cli.train_e4e",
-              "stylemc_torch.cli.calc_losses_on_images"):
+              "stylemc_torch.cli.calc_losses_on_images",
+              "stylemc_torch.parallel", "stylemc_torch.parallel.mesh",
+              "stylemc_torch.parallel.stats",
+              "stylemc_torch.bench.dp_ranks"):
         assert m in _modules()
 
 
 def test_source_scan_has_no_jax_or_stylemc_tpu_import():
     # import statements, and dynamic imports naming either package
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|stylemc_tpu)\b"
+        r"^\s*(import|from)\s+(jax|jaxlib|optax|stylemc_tpu)\b"
         r"|import_module\(\s*['\"](jax|stylemc_tpu)"
         r"|__import__\(\s*['\"](jax|stylemc_tpu)", re.M)
     paths = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]

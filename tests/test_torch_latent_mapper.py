@@ -197,7 +197,8 @@ def test_train_latent_mapper_matches_jax(setup, mapper_weights):
     got = tmap.mapper_apply(tm, torch.from_numpy(x)).detach().numpy()
     assert np.abs(got - start).max() > 1e-3  # it trained
 
-    # the caller's mapper is not trained in place, and no mesh
+    # the caller's mapper is not trained in place, and a mesh is a
+    # parallel.DataMesh (test_torch_parallel.py trains over one)
     fresh = tmap.params_from_torch_state(state, "cpu")
     again, _ = tlm.train_latent_mapper(
         gp, cfg, styles, tclips, tarc,
@@ -206,7 +207,7 @@ def test_train_latent_mapper_matches_jax(setup, mapper_weights):
     for k, v in tmap.params_to_torch_state(fresh).items():
         np.testing.assert_array_equal(v, state[k])
         np.testing.assert_array_equal(tmap.params_to_torch_state(again)[k], v)
-    with pytest.raises(ValueError, match="A17"):
+    with pytest.raises(TypeError, match="DataMesh"):
         tlm.train_latent_mapper(gp, cfg, styles, tclips, tarc,
                                 tlm.MapperTrainConfig(**_mkw()),
                                 mesh=object())
