@@ -2,8 +2,9 @@
 """Drive stylemc_torch's serving, training (single prompt, prompt sweeps,
 the landmarks loss, the latent mapper, the e4e encoder), real-image
 editing, DeepLab feature-blending, GAN evaluation (calc_metrics, LEC),
-NADA-loss and warp paths, their data-parallel forms and its fused-layer
-A/B on one CUDA card and check them.
+NADA-loss and warp paths, their data-parallel forms, TF1 pickles and the
+StyleGAN2 discriminator, the verify harness and the small CLIs, and its
+fused-layer A/B on one CUDA card and check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -256,6 +257,32 @@ script exits non-zero:
           batch 1 on the plain path, images/s both ways. dp_metrics
           (after metrics): FID, KID (rtol 1e-5) and PPL (1e-3) with mesh=
           on 64 images against the same calls without it
+  tf_legacy  (after mapper_clis) a TF1 (G, D, Gs) pickle of a seeded
+          stylegan2-ffhq-config-f (resolution 1024, fmap_base 16384,
+          fmap_max 512, 8 mapping layers, no fp16, no clamp; ToRGB weights
+          scaled as the e4e decoder's) and its resnet discriminator at
+          1024, written by stylemc_torch.bench.tf_pickle: load_generator
+          onto the card (params bit-equal to the written ones), a batch-8
+          render (B1 8) timed as images/s, 2 seeds card against CPU (±1,
+          the share off by one gated at 1e-3), the discriminator's ms per
+          batch of 8 and its logits card against CPU on the card's renders
+          (max |Δ| / max |logit| 1e-4), each gate beside a TF32 control;
+          the legacy CLI's .npz bit-equal to the loaded params
+  verify  python -m stylemc_torch verify on the card with every check:
+          the FFHQ-256 network, the TF pickle, an e4e checkpoint at 256,
+          a CLIP dir (the train phase's seeded ViT-B/32 and B/16 in the
+          OpenAI names, a stand-in BPE vocabulary), its seeded IR-SE-50, a
+          seeded Inception v3 (FID split of 16 a side), the deeplab
+          phase's checkpoint and the landmark files' MobileNet; golden
+          renders from a CPU run of verify --write_golden_renders and the
+          direction of the port's CPU find_direction on the same files and
+          seeds 0-3 (4 steps): exit 0, all_ok, PSNR >= 30 dB, cosine
+          >= 0.99, each check's seconds; B1 6 a FFHQ-256 call and 8 for
+          the TF network's, B2 6 a step
+  clis_misc  clip_filter over 16 rendered PNGs (full-width ViT-B/32 from
+          the verify CLIP dir) on the card and on the CPU: kept indices
+          and styles equal; python -m stylemc_torch listing the CLIs and
+          dispatching compare_directions
   Every card-against-CPU gate of the mapper, DeepLab, metrics and NADA
   phases is a fixed constant, read beside a TF32 control of the card's side
   (TF32 in cuDNN and cuBLAS) that must fail it. Each phase's seconds print
@@ -5100,6 +5127,470 @@ def modconv_entries(rows, paths, smi, mma_rate):
     return entries
 
 
+# ------------------------------------------------ TF pickles, verify, CLIs
+
+# the device of these phases (a CPU rehearsal at small sizes sets "cpu")
+CARD = "cuda"
+# stylegan2-ffhq-config-f: fmap_base 16384 (channel_base 32768), fmap_max
+# 512, 8 mapping layers; no fp16, no clamp
+TF_CFG_KW = dict(img_resolution=1024, num_fp16_res=0, conv_clamp=None)
+TF_SEEDS = {"G": 20, "D": 21}
+TF_RENDER_SEEDS = list(range(8))
+TF_PARITY_ITEMS = 2          # renders and logits held card against CPU
+TF_RENDER_OFF_SHARE = 1e-3   # uint8 values off by one, card against CPU
+TF_D_RTOL = 1e-4             # max |Δ logit| / max |logit|, card against CPU
+TF_TIMED_ITERS = 5
+VERIFY_SEEDS = "0-3"         # 4 items: 4 find_direction steps (4 epochs)
+VERIFY_FID_SAMPLES = 16      # one batch of 16 a side
+VERIFY_E4E_SEEDS = {"encoder": 30, "decoder": 31, "latent_avg": 32}
+VERIFY_INCEPTION_SEED = 33
+CLIP_FILTER_IMAGES = 16
+CLIP_FILTER_PROMPTS = "a photo of a man|a photo of a woman"
+# a stand-in BPE vocabulary (the real one is not in the repository): the
+# byte-level tokens and ten merges
+CLIP_BPE_MERGES = [("t", "h"), ("a", "n"), ("i", "n"), ("o", "f"),
+                   ("r", "e"), ("f", "a"), ("c", "e"), ("m", "a"),
+                   ("w", "o"), ("e", "d")]
+
+
+def _sync(torch):
+    if CARD == "cuda":
+        torch.cuda.synchronize()
+
+
+def _same(a, b) -> bool:
+    """Two numpy params trees hold the same names and bit-equal values
+    (a scalar's shape () or (1,) alike)."""
+    import numpy as np
+
+    if isinstance(b, dict):
+        return isinstance(a, dict) and sorted(a) == sorted(b) and all(
+            _same(a[k], b[k]) for k in b)
+    return np.array_equal(np.asarray(a).reshape(np.shape(b)), b)
+
+
+def run_cli_here(paths, cfg, path, module, *args):
+    """`module`'s click command run in this process, its launches counted
+    and held to none (a CLI that renders nothing); its seconds."""
+    t0 = time.perf_counter()
+
+    def call():
+        try:
+            module.main(args=list(args), standalone_mode=False)
+        except SystemExit as e:
+            if e.code not in (None, 0):
+                raise RuntimeError(f"{module.__name__} exited {e.code}")
+
+    _, launches = count_launches(call)
+    record_launches(paths, cfg, path, launches, 0)
+    return time.perf_counter() - t0
+
+
+def _u8_parity(a, b):
+    """(max |Δ|, share of values off by one) of two uint8 arrays."""
+    import numpy as np
+
+    d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+    return int(d.max()), float((d == 1).mean())
+
+
+def phase_tf_legacy(torch, tmp, smi, paths):
+    """A TF1 (G, D, Gs) pickle of a seeded full-width
+    stylegan2-ffhq-config-f network (resolution 1024, fmap_base 16384,
+    fmap_max 512, 8 mapping layers, no fp16, no clamp) and its resnet
+    discriminator at 1024, written by stylemc_torch.bench.tf_pickle (no
+    TensorFlow, no JAX): load_generator onto the card, renders card
+    against CPU, the discriminator card against CPU, the legacy CLI's .npz
+    bit-equal to the loaded params."""
+    import numpy as np
+
+    from stylemc_torch.bench.tf_pickle import write_tf_pickle
+    from stylemc_torch.cli import legacy as legacy_cli
+    from stylemc_torch.convert import params_from_numpy, params_to_numpy
+    from stylemc_torch.edit import to_u8_nhwc
+    from stylemc_torch.io import (discriminator_from_stub, load_generator,
+                                  load_native, load_network_pkl)
+    from stylemc_torch.models.stylegan2.discriminator import (
+        discriminator_apply, init_discriminator_params)
+    from stylemc_torch.models.stylegan2.generator import (
+        GeneratorConfig, inference_cfg, init_generator_params, synthesis)
+
+    t0 = time.perf_counter()
+    cfg = GeneratorConfig(**TF_CFG_KW)
+    res = cfg.img_resolution
+    g = init_generator_params(torch.Generator().manual_seed(TF_SEEDS["G"]),
+                              cfg, device="cpu")
+    for bp in g["synthesis"].values():
+        bp["torgb"]["weight"] *= E4E_TORGB_SCALE
+    d = init_discriminator_params(
+        torch.Generator().manual_seed(TF_SEEDS["D"]), size=res,
+        device="cpu")
+    path = write_tf_pickle(os.path.join(tmp, "stylegan2-ffhq-config-f.pkl"),
+                           cfg, g, d, res)
+    write_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    tcfg, params = load_generator(path, device=CARD)
+    _sync(torch)
+    load_s = time.perf_counter() - t0
+    gp = params_to_numpy(params)
+    params_equal = _same(gp, params_to_numpy(g))
+    icfg = inference_cfg(tcfg)
+    cpu_params = params_from_numpy(gp, "cpu")
+    s8 = seed_styles(torch, params, icfg, TF_RENDER_SEEDS, CARD)
+
+    def render():
+        with torch.inference_mode():
+            return synthesis(params, icfg, s8, noise_mode="const")
+
+    img, launches = count_launches(render)
+    record_launches(paths, tcfg, "tf_legacy_render", launches, 1)
+    render()
+    _sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(TF_TIMED_ITERS):
+        render()
+    _sync(torch)
+    render_s = (time.perf_counter() - t0) / TF_TIMED_ITERS
+    finite = bool(torch.isfinite(img).all())
+
+    # card against CPU on the first seeds, each side rendering them alone
+    seeds = TF_RENDER_SEEDS[:TF_PARITY_ITEMS]
+    with torch.inference_mode():
+        s2 = seed_styles(torch, params, icfg, seeds, CARD)
+        card_u8 = to_u8_nhwc(synthesis(params, icfg, s2)).cpu().numpy()
+        with tf32_control(torch):
+            tf32_u8 = to_u8_nhwc(synthesis(params, icfg, s2)).cpu().numpy()
+        cpu_u8 = to_u8_nhwc(synthesis(cpu_params, icfg, seed_styles(
+            torch, cpu_params, icfg, seeds, "cpu"))).numpy()
+    card_max, card_share = _u8_parity(card_u8, cpu_u8)
+    tf32_max, tf32_share = _u8_parity(tf32_u8, cpu_u8)
+    gates = {}
+    _gate("tf_render_off_by_one_share", card_share, tf32_share,
+          TF_RENDER_OFF_SHARE, gates)
+    if card_max > 1:
+        raise AssertionError(f"TF generator renders card against CPU: "
+                             f"max |Δ| {card_max} > 1")
+
+    # the discriminator, on the card's renders (timed) and on the parity
+    # renders card against CPU, both sides fed the card's images
+    t0 = time.perf_counter()
+    size, dparams = discriminator_from_stub(load_network_pkl(path)["D"],
+                                            device=CARD)
+    dload_s = time.perf_counter() - t0
+    d_equal = size == res and _same(params_to_numpy(dparams),
+                                    params_to_numpy(d))
+    cpu_d = params_from_numpy(params_to_numpy(dparams), "cpu")
+    x8 = img.clamp(-1, 1)
+
+    def disc():
+        with torch.inference_mode():
+            return discriminator_apply(dparams, x8)
+
+    logits8, dl = count_launches(disc)
+    record_launches(paths, tcfg, "tf_legacy_discriminator", dl, 0)
+    d_ms = event_ms(disc, iters=10, warmup=2)
+    x2 = torch.from_numpy(card_u8).permute(0, 3, 1, 2).float() / 127.5 - 1
+    with torch.inference_mode():
+        card_logits = discriminator_apply(dparams, x2.to(CARD)).cpu()
+        with tf32_control(torch):
+            tf32_logits = discriminator_apply(dparams, x2.to(CARD)).cpu()
+        cpu_logits = discriminator_apply(cpu_d, x2)
+    scale = float(cpu_logits.abs().max())
+    _gate("tf_discriminator_rel",
+          float((card_logits - cpu_logits).abs().max()) / scale,
+          float((tf32_logits - cpu_logits).abs().max()) / scale, TF_D_RTOL,
+          gates)
+
+    # the legacy CLI reads the TF pickle; its .npz holds the same params
+    npz = os.path.join(tmp, "stylegan2-ffhq-config-f.npz")
+    cli_s = run_cli_here(paths, tcfg, "tf_legacy_cli", legacy_cli,
+                         "--source", path, "--dest", npz)
+    ncfg, nparams = load_native(npz, device="cpu")
+    npz_equal = ncfg == tcfg and _same(params_to_numpy(nparams), gp)
+    checks = {"config": tcfg == cfg, "generator_params_bit_equal":
+              params_equal, "discriminator_params_bit_equal": d_equal,
+              "renders_finite": finite,
+              "logits_finite": bool(torch.isfinite(logits8).all()),
+              "legacy_npz_bit_equal": npz_equal}
+    emit({"phase": "tf_legacy", "card": smi,
+          "config": {"resolution": res,
+                     "fmap_base": cfg.channel_base // 2,
+                     "fmap_max": cfg.channel_max,
+                     "mapping_layers": cfg.mapping_layers,
+                     "num_fp16_res": 0, "conv_clamp": None},
+          "pickle_bytes": os.path.getsize(path), "write_s": write_s,
+          "load_generator_s": load_s, "load_discriminator_s": dload_s,
+          "render_batch": len(TF_RENDER_SEEDS), "render_s": render_s,
+          "images_per_s": len(TF_RENDER_SEEDS) / render_s,
+          "discriminator_ms_per_batch8": d_ms,
+          "launches": {"render": launches, "discriminator": dl},
+          "render_parity": {"max_abs": card_max, "off_by_one": card_share,
+                            "tf32_max_abs": tf32_max,
+                            "tf32_off_by_one": tf32_share},
+          "gates": gates, "legacy_cli_s": cli_s, "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"tf_legacy checks failed: {checks}")
+    return path
+
+
+def write_verify_files(torch, clip_models, arc, size, tmp):
+    """The weight files `verify` reads, from seeded networks in the
+    reference's state-dict names: an e4e checkpoint at the network's size
+    (the IR-SE-50 Encoder4Editing, 14 style heads at 256, and the
+    rosinality decoder),
+    a CLIP dir (full-width ViT-B/32 and ViT-B/16, the train phase's seeded
+    weights, and a stand-in BPE vocabulary), the train phase's IR-SE-50
+    and a seeded Inception v3."""
+    import gzip
+
+    from stylemc_torch.io.export import save_e4e_pt
+    from stylemc_torch.io.rosinality import config_for_rosinality
+    from stylemc_torch.io.torch_state import state_from_params
+    from stylemc_torch.metrics import inception
+    from stylemc_torch.models import arcface
+    from stylemc_torch.models.clip import model as clip
+    from stylemc_torch.models.e4e.encoders import init_encoder_params
+    from stylemc_torch.models.stylegan2.generator import (
+        init_generator_params, mapping)
+
+    def gen(key):
+        return torch.Generator().manual_seed(VERIFY_E4E_SEEDS[key])
+
+    def save(path, state):
+        torch.save({k: torch.from_numpy(v) for k, v in state.items()}, path)
+        return path
+
+    d = os.path.join(tmp, "verify")
+    os.makedirs(os.path.join(d, "clip"))
+    enc = init_encoder_params(gen("encoder"), size, device="cpu")
+    dcfg = config_for_rosinality(size)
+    dec = init_generator_params(gen("decoder"), dcfg, device="cpu")
+    with torch.inference_mode():
+        z = torch.randn((4096, dcfg.z_dim), generator=gen("latent_avg"))
+        w_avg = mapping(dec, dcfg, z)[:, 0].mean(dim=0)
+    files = {"e4e": save_e4e_pt(os.path.join(d, f"e4e_{size}.pt"), enc, dcfg,
+                                dec, w_avg),
+             "clip_dir": os.path.join(d, "clip"),
+             "arcface": save(os.path.join(d, "model_ir_se50.pth"),
+                             state_from_params(arcface.params_from_torch_state,
+                                               arc)),
+             "inception": save(os.path.join(d, "inception.pth"),
+                               state_from_params(
+                                   inception.params_from_torch_state,
+                                   inception.init_inception_params(
+                                       torch.Generator().manual_seed(
+                                           VERIFY_INCEPTION_SEED),
+                                       device="cpu")))}
+    for name, (ccfg, cparams) in clip_models.items():
+        save(os.path.join(files["clip_dir"], name.replace("/", "-") + ".pt"),
+             state_from_params(clip.params_from_torch_state, cparams, ccfg))
+    files["bpe"] = os.path.join(files["clip_dir"],
+                                "bpe_simple_vocab_16e6.txt.gz")
+    with gzip.open(files["bpe"], "wt") as f:
+        f.write("\n".join(["#version: stand-in"] + [
+            f"{a} {b}</w>" for a, b in CLIP_BPE_MERGES]) + "\n")
+    return files
+
+
+def phase_verify(torch, models, net, tf_pkl, deeplab_ckpt, landmark_files,
+                 tmp, smi, paths):
+    """`python -m stylemc_torch verify` on the card with every check: the
+    FFHQ-256 network, the TF pickle, e4e, CLIP, ArcFace, Inception (and the
+    FID split), DeepLab and MobileNet from seeded files, golden renders from
+    a CPU run of the port's own verify --write_golden_renders, and the
+    direction of the port's CPU find_direction on the same files and
+    seeds."""
+    import numpy as np
+
+    from stylemc_torch.cli import verify_weights as verify_cli
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.models.stylegan2.generator import inference_cfg
+    from stylemc_torch.train.find_direction import (FindDirectionConfig,
+                                                    find_direction)
+    from stylemc_torch.utils.misc import num_range
+    from stylemc_torch.utils.model_zoo import load_arcface, load_clip_models
+
+    cfg, params = load_generator(net, device="cpu")
+    t0 = time.perf_counter()
+    # the train phase's seeded CLIP and ArcFace, their CPU copies
+    files = write_verify_files(torch, models[2], models[3],
+                               cfg.img_resolution, tmp)
+    write_s = time.perf_counter() - t0
+    env = {"STYLEMC_CLIP_BPE": files["bpe"]}
+    d = os.path.dirname(files["e4e"])
+
+    # the CPU's golden renders and direction, on the same files and seeds
+    golden = os.path.join(d, "golden_cpu.npz")
+    golden_s = run_cli_here(
+        paths, cfg, "verify_golden_cpu", verify_cli, "--network", net,
+        "--seeds", VERIFY_SEEDS, "--write_golden_renders", golden,
+        "--report", os.path.join(d, "golden_report.json"), "--device", "cpu")
+    t0 = time.perf_counter()
+    os.environ.update(env)
+    try:
+        clips, tok = load_clip_models("double", clip_dir=files["clip_dir"],
+                                      device="cpu")
+    finally:
+        os.environ.pop("STYLEMC_CLIP_BPE")
+    styles = seed_styles(torch, params, inference_cfg(cfg),
+                         num_range(VERIFY_SEEDS), "cpu")
+    direction, info = find_direction(
+        params, cfg, styles.numpy(), clips,
+        load_arcface(files["arcface"], device="cpu"),
+        FindDirectionConfig(resolution=min(256, cfg.img_resolution)),
+        tokenizer=tok)
+    recorded = os.path.join(d, "direction_cpu.npz")
+    np.savez(recorded, s=direction.numpy())
+    cpu_direction_s = time.perf_counter() - t0
+    del clips, params
+
+    report = os.path.join(d, "verify_report.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_RUNNER, "stylemc_torch", "verify",
+         "--network", net, "--tf_network", tf_pkl, "--e4e", files["e4e"],
+         "--clip_dir", files["clip_dir"], "--arcface", files["arcface"],
+         "--inception", files["inception"], "--deeplab", deeplab_ckpt,
+         "--mobilenet", landmark_files[1], "--seeds", VERIFY_SEEDS,
+         "--fid_samples", str(VERIFY_FID_SAMPLES),
+         "--golden_renders", golden, "--torch_direction", recorded,
+         "--report", report, "--device", CARD], cwd=ROOT, timeout=600,
+        capture_output=True,
+        text=True, env={**os.environ, **env})
+    verify_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"verify exited {proc.returncode}:\n"
+                           f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    launches = json.loads(lines[-1])
+    with open(report) as f:
+        rep = json.load(f)
+    checks = rep["checks"]
+    steps = checks["direction_vs_torch"]["details"]["steps"]
+    # FFHQ-256 synthesis calls (6 upper blocks): the generator check, the
+    # FID split's two batches, find_direction's precompute and its steps;
+    # the TF network's one call at 1024 (8); one backward pass a step
+    calls256 = 1 + 2 * -(-VERIFY_FID_SAMPLES // 16) + 1 + steps
+    want = {"upsample2x": 6 * calls256 + 8, "downsample2x": 6 * steps,
+            **{k: 0 for k in MODCONV_KERNELS}}
+    paths["verify"] = {"launches": launches,
+                       "synthesis_calls": calls256 + 1,
+                       "backward_calls": steps, "upper_blocks": "6 and 8"}
+    gate = {"exit_code": proc.returncode == 0, "all_ok": rep["all_ok"],
+            "every_check": sorted(checks) == sorted([
+                "generator", "tf_generator", "golden_renders", "clip",
+                "arcface", "e4e", "inception", "fid_sanity", "deeplab",
+                "mobilenet_landmarks", "direction_vs_torch"]),
+            "psnr": checks["golden_renders"]["details"]["psnr_db"] >= 30.0,
+            "cosine": checks["direction_vs_torch"]["details"][
+                "cosine_mean"] >= 0.99,
+            "launches": launches == want}
+    emit({"phase": "verify", "card": smi, "seeds": VERIFY_SEEDS,
+          "fid_samples": VERIFY_FID_SAMPLES, "write_files_s": write_s,
+          "cpu_golden_s": golden_s, "cpu_direction_s": cpu_direction_s,
+          "cpu_direction_steps": info["iterations"], "verify_s": verify_s,
+          "check_seconds": {k: v["seconds"] for k, v in checks.items()},
+          "details": {k: v.get("details", v.get("error"))
+                      for k, v in checks.items()},
+          "launches": launches, "launches_want": want, "checks": gate})
+    if not all(gate.values()):
+        raise AssertionError(f"verify checks failed: {gate}\n"
+                             f"{proc.stdout[-3000:]}")
+    return files
+
+
+def phase_clis_misc(torch, net, verify_files, direction, tmp, smi, paths):
+    """clip_filter on the card over 16 rendered PNGs (full-width ViT-B/32
+    from the verify phase's CLIP dir) against the same CLI on the CPU;
+    compare_directions and the CLI listing through python -m
+    stylemc_torch."""
+    import numpy as np
+    from PIL import Image
+
+    from stylemc_torch.__main__ import CLIS
+    from stylemc_torch.__main__ import main as stylemc_main
+    from stylemc_torch.cli import clip_filter as clip_filter_cli
+    from stylemc_torch.edit import to_u8_nhwc
+    from stylemc_torch.io import load_generator
+    from stylemc_torch.models.stylegan2.generator import (inference_cfg,
+                                                          synthesis)
+
+    cfg, params = load_generator(net, device=CARD)
+    icfg = inference_cfg(cfg)
+    styles = seed_styles(torch, params, icfg, range(CLIP_FILTER_IMAGES),
+                         CARD)
+
+    def render():
+        with torch.inference_mode():
+            return to_u8_nhwc(synthesis(params, icfg, styles)).cpu().numpy()
+
+    imgs, launches = count_launches(render)
+    record_launches(paths, cfg, "clip_filter_renders", launches, 1)
+    d = os.path.join(tmp, "clip_filter")
+    os.makedirs(os.path.join(d, "images"))
+    for i, im in enumerate(imgs):
+        Image.fromarray(im).save(os.path.join(d, "images", f"{i:03d}.png"))
+    s_input = os.path.join(d, "styles.npz")
+    np.savez(s_input, s=styles.cpu().numpy())
+    env = {"STYLEMC_CLIP_DIR": verify_files["clip_dir"],
+           "STYLEMC_CLIP_BPE": verify_files["bpe"]}
+    outs = {device: os.path.join(d, f"kept_{device}.npz")
+            for device in (CARD, "cpu")}
+
+    def args(device):
+        return ("--images_dir", os.path.join(d, "images"), "--s_input",
+                s_input, "--prompts", CLIP_FILTER_PROMPTS, "--keep_class",
+                "1", "--out_file", outs[device], "--batch",
+                str(CLIP_FILTER_IMAGES), "--device", device)
+
+    # the card's run as a subprocess, the CPU's in this process
+    seconds = {CARD: run_cli(paths, cfg, f"clip_filter_{CARD}",
+                             "clip_filter", 0, 0, *args(CARD), env=env)[0]}
+    os.environ.update(env)
+    try:
+        seconds["cpu"] = run_cli_here(paths, cfg, "clip_filter_cpu",
+                                      clip_filter_cli, *args("cpu"))
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    got, want = np.load(outs[CARD]), np.load(outs["cpu"])
+    listing = io.StringIO()
+    with contextlib.redirect_stdout(listing):
+        stylemc_main(["stylemc_torch"])
+    listing = listing.getvalue()
+    env_list = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    other = os.path.join(d, "direction_other.npz")
+    rs = np.random.RandomState(2)
+    s0 = np.load(direction)["s"]
+    np.savez(other, s=s0 + rs.randn(*s0.shape).astype(np.float32) * 0.01
+             * (s0 != 0))
+    cmp = subprocess.run([sys.executable, "-m", "stylemc_torch",
+                          "compare_directions", direction, other], cwd=ROOT,
+                         timeout=120, capture_output=True, text=True,
+                         env=env_list)
+    result = json.loads(cmp.stdout.strip().splitlines()[-1]) \
+        if cmp.returncode == 0 else {}
+    checks = {"kept_indices_equal": np.array_equal(got["indices"],
+                                                   want["indices"]),
+              "styles_equal": np.array_equal(got["s"], want["s"]),
+              "listing": all(f"  {name} " in listing for name, _ in CLIS),
+              "compare_directions": cmp.returncode == 0
+              and result.get("pass") is True}
+    emit({"phase": "clis_misc", "card": smi,
+          "clip_filter": {"images": CLIP_FILTER_IMAGES,
+                          "kept": got["indices"].tolist(),
+                          "card_s": seconds[CARD],
+                          "cpu_s": seconds["cpu"]},
+          "compare_directions": {k: result.get(k) for k in
+                                 ("min_active_cosine", "mean_active_cosine",
+                                  "pass")},
+          "clis_listed": len(CLIS), "checks": checks})
+    if not all(checks.values()):
+        raise AssertionError(f"clis_misc checks failed: {checks}\n"
+                             f"{listing}{cmp.stderr[-2000:]}")
+
+
 def main() -> int:
     import torch
 
@@ -5182,6 +5673,14 @@ def main() -> int:
                         paths)
         run("mapper_clis", phase_mapper_clis, torch, cfg1024, net1024,
             net1024b, mapper_styles, ckpt, seg, tmp, smi, paths)
+        # the TF pickle, the verify harness and the small CLIs, on the
+        # train phase's perception models, DeepLab's checkpoint and the
+        # landmark files
+        tf_pkl = run("tf_legacy", phase_tf_legacy, torch, tmp, smi, paths)
+        verify_files = run("verify", phase_verify, torch, models, net,
+                           tf_pkl, ckpt, landmark_files, tmp, smi, paths)
+        run("clis_misc", phase_clis_misc, torch, net, verify_files,
+            direction, tmp, smi, paths)
         del editor, models, landmarker, styles, mapper_styles, seg
         torch.cuda.empty_cache()
         editor = run("serve", phase_serve, torch, net, direction, smi, paths)

@@ -169,6 +169,7 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
     from ..train.find_direction import FindDirectionConfig, find_direction
     from ..utils.logging import RunLogger
     from ..utils.model_zoo import load_arcface, load_clip_models
+    from ..utils.profiling import trace
 
     dev = resolve_device(device)
     logger = RunLogger("stylegan2_latent_mapper", config=dict(
@@ -252,14 +253,8 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
             print("landmark model weights unavailable — landmarks metric "
                   "reported as 0 (it carries no gradient either way)")
 
-    tracing = contextlib.nullcontext()
-    if trace_dir:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        tracing = profile(activities=activities)
+    tracing = (trace(trace_dir, "find_direction_trace.json", dev)
+               if trace_dir else contextlib.nullcontext())
     with tracing:
         if text_prompts:
             _sweep(params, cfg, styles_array, clip_models, arcface_params,
@@ -276,10 +271,6 @@ def main(network_pkl, noise_mode, s_input, outdir, text_prompt, text_prompts,
                 resume_direction=resume_direction,
                 callback=callback, landmarks_metric_fn=landmarks_metric_fn,
                 landmarker=landmarker if landmarks_grad else None)
-    if trace_dir:
-        os.makedirs(trace_dir, exist_ok=True)
-        tracing.export_chrome_trace(
-            os.path.join(trace_dir, "find_direction_trace.json"))
     if text_prompts:
         print("time passed:", time.time() - t1)
         logger.finish()

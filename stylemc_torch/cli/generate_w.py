@@ -8,20 +8,12 @@
 from __future__ import annotations
 
 import os
-import re
-from typing import List
 
 import click
 import numpy as np
 import torch
 
-
-def num_range(s: str) -> List[int]:
-    """'a-c' or 'a,b,c' → list of ints."""
-    m = re.match(r"^(\d+)-(\d+)$", s)
-    if m:
-        return list(range(int(m.group(1)), int(m.group(2)) + 1))
-    return [int(x) for x in s.split(",")]
+from ..utils.misc import num_range
 
 
 @click.command()

@@ -9,6 +9,8 @@ from .native import load_native, save_native
 from .torch_state import load_state_dict_numpy, strip_prefix
 from .export import (ada_to_rosinality_state, encoder_to_torch_state,
                      save_rosinality_pt, save_e4e_pt)
+from .tf_legacy import (TFNetworkStub, convert_tf_generator,
+                        convert_tf_discriminator, discriminator_from_stub)
 
 __all__ = [
     "EasyDict",
@@ -24,4 +26,8 @@ __all__ = [
     "encoder_to_torch_state",
     "save_rosinality_pt",
     "save_e4e_pt",
+    "TFNetworkStub",
+    "convert_tf_generator",
+    "convert_tf_discriminator",
+    "discriminator_from_stub",
 ]

@@ -12,6 +12,8 @@ Entry points:
   generator_from_stub(stub)   → (GeneratorConfig, numpy params tree)
   load_generator(path)        → (GeneratorConfig, torch params) for G_ema,
                                 or from a native .npz / rosinality .pt
+A legacy TensorFlow (G, D, Gs) pickle converts onto the same layout
+(`io/tf_legacy.py`).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import numpy as np
 from ..convert import params_from_numpy
 from ..device import DeviceLike
 from ..models.stylegan2.generator import GeneratorConfig
+from .tf_legacy import (TFNetworkStub, convert_tf_discriminator,
+                        convert_tf_generator, is_tf_network_tuple)
 
 
 class EasyDict(dict):
@@ -169,6 +173,10 @@ class _SafeUnpickler(pickle.Unpickler):
         if (module.startswith("torch_utils.persistence")
                 and name == "_reconstruct_persistent_obj"):
             return _reconstruct_persistent_stub
+        if module == "dnnlib.tflib.network" and name == "Network":
+            # a legacy TF pickle's network: an inert stub, the embedded
+            # build source is never executed
+            return TFNetworkStub
         if module.startswith("dnnlib") and name == "EasyDict":
             return EasyDict
         if module == "torch.storage" and name == "_load_from_bytes":
@@ -178,24 +186,28 @@ class _SafeUnpickler(pickle.Unpickler):
         if module == "torch" and (name in _TORCH_DTYPE_NAMES
                                   or name in _TORCH_STORAGE_NAMES):
             return super().find_class(module, name)
-        # everything else (nn.Module subclasses, legacy TF networks, any
-        # other class): an inert stub that keeps the recorded type name
+        # everything else (nn.Module subclasses, any other class): an inert
+        # stub that keeps the recorded type name
         return type(f"Stub_{name}", (_StubBase,),
                     {"_pickle_type": (module, name)})
 
 
 def load_network_pkl(f) -> Dict[str, Any]:
     """Parse an NVIDIA network pickle (path or binary file object) without
-    executing embedded code; network objects become `PersistentStub`s.
-    Legacy TensorFlow pickles are refused."""
+    executing embedded code; network objects become `PersistentStub`s. A
+    legacy TensorFlow (G, D, Gs) pickle is converted onto the same
+    {'G', 'D', 'G_ema'} layout."""
     if isinstance(f, (str, bytes)):
         with open(f, "rb") as fh:
             data = _SafeUnpickler(fh).load()
     else:
         data = _SafeUnpickler(f).load()
-    if isinstance(data, tuple):
-        raise ValueError("legacy TensorFlow network pickles are not "
-                         "supported by stylemc_torch yet")
+    if is_tf_network_tuple(data):
+        tf_G, tf_D, tf_Gs = data
+        data = {"G": convert_tf_generator(tf_G),
+                "D": convert_tf_discriminator(tf_D),
+                "G_ema": convert_tf_generator(tf_Gs),
+                "training_set_kwargs": None, "augment_pipe": None}
     if not isinstance(data, dict):
         raise ValueError(f"unexpected pickle payload: {type(data)}")
     return data

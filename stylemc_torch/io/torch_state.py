@@ -38,3 +38,40 @@ def strip_prefix(state: Dict[str, np.ndarray], prefix: str
     `encoder.` / `decoder.` split."""
     plen = len(prefix)
     return {k[plen:]: v for k, v in state.items() if k.startswith(prefix)}
+
+
+class _EchoState(dict):
+    """A state dict that holds every name, each mapped to itself."""
+
+    def __missing__(self, key):
+        return key
+
+    def __contains__(self, key):
+        return True
+
+    def get(self, key, default=None):
+        return key
+
+
+def state_from_params(params_from_torch_state, params, *args
+                      ) -> Dict[str, np.ndarray]:
+    """The inverse of a name-mapping state converter: the state dict (numpy
+    float32 values) that `params_from_torch_state(state, *args)` maps onto
+    `params`. The converter is run on a state that echoes each name it
+    reads, which gives the name of every leaf; names whose leaf `params`
+    lacks are left out."""
+    names = params_from_torch_state(_EchoState(), *args)
+    out: Dict[str, np.ndarray] = {}
+
+    def walk(name_tree, tree):
+        if isinstance(name_tree, dict):
+            for k, sub in name_tree.items():
+                if k in tree:
+                    walk(sub, tree[k])
+            return
+        if isinstance(tree, torch.Tensor):
+            tree = tree.detach().cpu().numpy()
+        out[name_tree] = np.array(tree, np.float32)
+
+    walk(names, params)
+    return out

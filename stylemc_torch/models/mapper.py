@@ -77,6 +77,9 @@ def _sub_mapper(sub: _SubMapper, x: torch.Tensor, neg_slope: float
 def mapper_apply(mapper: Mapper, x: torch.Tensor, neg_slope: float = 0.01
                  ) -> torch.Tensor:
     """x: [N, 8, 512] trainable-row styles → delta [N, 8, 512]."""
+    # one row-major layout whatever the caller's strides: the CPU GEMM's
+    # sums follow the input's layout
+    x = x.contiguous()
     coarse = _sub_mapper(mapper.course_mapping, x[:, :HALF_ROWS], neg_slope)
     medium = _sub_mapper(mapper.medium_mapping, x[:, HALF_ROWS:2 * HALF_ROWS],
                          neg_slope)

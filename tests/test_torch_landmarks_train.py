@@ -80,7 +80,15 @@ def test_find_direction_landmarks_in_graph_matches_jax(weights,
     box for every render, so they crop the same boxes. The coefficient is
     small: ReLU masks that flip under fp32 noise put ~1e-3 relative L2 on
     MobileNet's input gradient in either package (against float64), which
-    the default 25 would carry into the direction past 1e-4."""
+    the default 25 would carry into the direction past 1e-4.
+
+    Even so the direction after two steps sits at fp32's floor: JAX's own
+    run moves by up to ~1.1e-4 when the styles move by one float32 ulp
+    (a relative 1.2e-7, either sign). The port is held to JAX within 1e-4,
+    or within that perturbed control's reading where it is larger, and the
+    control must read at least a third of 1e-4, so the bound is not slack.
+    (JAX's float64 is no reference here: its generator casts each block's
+    input to float32.)"""
     mb = weights[3]
     plain = {w: params_to_numpy(tnets.init_net_params(_gen(i), w,
                                                       device="cpu"))
@@ -110,7 +118,18 @@ def test_find_direction_landmarks_in_graph_matches_jax(weights,
         landmarker=tl, callback=callback)
     assert tinfo["iterations"] == jinfo["iterations"] == 2
     np.testing.assert_allclose(tinfo["history"], jinfo["history"], rtol=1e-4)
-    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=1e-4)
+    control = 0.0
+    for eps in (1.2e-7, -1.2e-7):
+        jd_eps, _ = jfd.find_direction(
+            gen_params, gen_cfg,
+            (styles[:8] * np.float32(1 + eps)).astype(np.float32), clips,
+            arc, jfd.FindDirectionConfig(**kw), tokenizer=JaxTokenizer(),
+            resume_direction=resume, landmarker=jl)
+        control = max(control, float(np.abs(np.asarray(jd_eps)
+                                            - np.asarray(jd)).max()))
+    assert control >= 1e-4 / 3
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0,
+                               atol=max(1e-4, control))
     assert np.isfinite(seen["landmarks_loss"]) and seen["landmarks_loss"] > 0
     # the term carries gradient to Δs
     fdc = tfd.FindDirectionConfig(**kw)

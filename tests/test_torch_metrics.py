@@ -372,16 +372,24 @@ def test_slerp_and_compute_ppl_match_jax(gens, lpips_nets):
 
 PPL_EPS = 1e-4
 PPL_PAIR_RTOL_F64 = 1e-2   # each fp32 pair distance against float64
-PPL_MEAN_RTOL_F64 = 1e-4   # the mean over the pairs against float64
+# the mean over the n pairs against float64, in units of JAX's own fp32
+# standard error of that mean on the same pairs (rms pair error / sqrt(n))
+PPL_MEAN_SIGMAS_F64 = 2.0
 
 
 def test_ppl_at_the_registered_epsilon_against_float64(gens, lpips_nets):
     """At ppl2_wend's ε = 1e-4 the two renders of a pair differ by ~1e-4,
     so fp32 rounding (~1e-7) of either render is ~1e-3 of their difference
     in either package. The port's fp32 distances are held against JAX in
-    float64 on the same pairs within the fixed bounds above, and JAX's own
-    fp32 run must read at least a third of each bound, so that neither
-    bound is slack above the fp32 floor."""
+    float64 on the same pairs (float64 latents, weights and LPIPS; JAX's
+    synthesis casts each block's input to float32): each pair within the
+    fixed bound above, and
+    JAX's own fp32 run must read at least a third of it, so that it is not
+    slack above the fp32 floor. The pairs' fp32 errors are independent
+    (rms ~3e-3 in either package), so the mean of n pairs carries their
+    rms / sqrt(n) whatever the implementation: the mean is held within
+    PPL_MEAN_SIGMAS_F64 of that standard error as JAX's own fp32 pairs
+    read it, and JAX's own mean must sit within it too."""
     cfg, gp, tcfg, tgp = gens
     jl, tl = lpips_nets["vgg"]
     pairs = _jax_ppl_pairs(0, 16, 8, cfg.z_dim)
@@ -424,16 +432,21 @@ def test_ppl_at_the_registered_epsilon_against_float64(gens, lpips_nets):
         return np.abs(v / want - 1).max(), abs(v.mean() / want.mean() - 1)
 
     port_pair, port_mean = reading(got)
-    assert port_pair <= PPL_PAIR_RTOL_F64
-    assert port_mean <= PPL_MEAN_RTOL_F64
-    # the bounds sit at fp32's own floor: JAX in fp32 reads at least a
-    # third of each from float64 on the same pairs
     jax_pair, jax_mean = reading(jax_fp32)
+    # JAX's own fp32 standard error of the mean of these pairs
+    jax_sem = float(np.sqrt(np.mean(np.square(jax_fp32 / want - 1)))
+                    / np.sqrt(len(want)))
+    mean_bound = PPL_MEAN_SIGMAS_F64 * jax_sem
     print(f"PPL at eps {PPL_EPS} against float64 (max pair, mean): port "
           f"fp32 {port_pair:.4g}, {port_mean:.4g}; JAX fp32 {jax_pair:.4g}, "
-          f"{jax_mean:.4g}")
+          f"{jax_mean:.4g}; JAX's standard error of the mean {jax_sem:.4g}")
+    assert port_pair <= PPL_PAIR_RTOL_F64
+    assert port_mean <= mean_bound
+    # the pair bound sits at fp32's own floor: JAX in fp32 reads at least
+    # a third of it from float64 on the same pairs; JAX's own mean sits
+    # within the mean bound
     assert jax_pair >= PPL_PAIR_RTOL_F64 / 3
-    assert jax_mean >= PPL_MEAN_RTOL_F64 / 3
+    assert jax_mean <= mean_bound
 
 
 @pytest.fixture(scope="module")
