@@ -257,7 +257,10 @@ script exits non-zero:
           batch 1 on the plain path, images/s both ways. dp_metrics
           (after metrics): FID, KID (rtol 1e-5) and PPL (1e-3) with mesh=
           on 64 images against the same calls without it
-  tf_legacy  (after mapper_clis) a TF1 (G, D, Gs) pickle of a seeded
+  verify_refs  (after mapper_clis) writes verify's weight files and starts
+          the CPU's references for it (golden renders and a direction, below)
+          in a background thread, which runs beside tf_legacy and clis_misc
+  tf_legacy  a TF1 (G, D, Gs) pickle of a seeded
           stylegan2-ffhq-config-f (resolution 1024, fmap_base 16384,
           fmap_max 512, 8 mapping layers, no fp16, no clamp; ToRGB weights
           scaled as the e4e decoder's) and its resnet discriminator at
@@ -268,7 +271,8 @@ script exits non-zero:
           batch of 8 and its logits card against CPU on the card's renders
           (max |Δ| / max |logit| 1e-4), each gate beside a TF32 control;
           the legacy CLI's .npz bit-equal to the loaded params
-  verify  python -m stylemc_torch verify on the card with every check:
+  verify  (after clis_misc) python -m stylemc_torch verify on the card
+          with every check:
           the FFHQ-256 network, the TF pickle, an e4e checkpoint at 256,
           a CLIP dir (the train phase's seeded ViT-B/32 and B/16 in the
           OpenAI names, a stand-in BPE vocabulary), its seeded IR-SE-50, a
@@ -5393,57 +5397,89 @@ def write_verify_files(torch, clip_models, arc, size, tmp):
     return files
 
 
-def phase_verify(torch, models, net, tf_pkl, deeplab_ckpt, landmark_files,
-                 tmp, smi, paths):
-    """`python -m stylemc_torch verify` on the card with every check: the
-    FFHQ-256 network, the TF pickle, e4e, CLIP, ArcFace, Inception (and the
-    FID split), DeepLab and MobileNet from seeded files, golden renders from
-    a CPU run of the port's own verify --write_golden_renders, and the
-    direction of the port's CPU find_direction on the same files and
-    seeds."""
+def _verify_cpu_refs(torch, net, files):
+    """The CPU's golden renders (verify --write_golden_renders) and the
+    direction of the port's CPU find_direction on the verify files and
+    seeds; (golden path, direction path, seconds of each). Nothing here
+    launches a kernel or touches the launch counters."""
     import numpy as np
 
     from stylemc_torch.cli import verify_weights as verify_cli
     from stylemc_torch.io import load_generator
+    from stylemc_torch.models.clip.load import load_clip
+    from stylemc_torch.models.clip.tokenizer import SimpleTokenizer
     from stylemc_torch.models.stylegan2.generator import inference_cfg
     from stylemc_torch.train.find_direction import (FindDirectionConfig,
                                                     find_direction)
     from stylemc_torch.utils.misc import num_range
-    from stylemc_torch.utils.model_zoo import load_arcface, load_clip_models
+    from stylemc_torch.utils.model_zoo import load_arcface
 
-    cfg, params = load_generator(net, device="cpu")
-    t0 = time.perf_counter()
-    # the train phase's seeded CLIP and ArcFace, their CPU copies
-    files = write_verify_files(torch, models[2], models[3],
-                               cfg.img_resolution, tmp)
-    write_s = time.perf_counter() - t0
-    env = {"STYLEMC_CLIP_BPE": files["bpe"]}
     d = os.path.dirname(files["e4e"])
-
-    # the CPU's golden renders and direction, on the same files and seeds
     golden = os.path.join(d, "golden_cpu.npz")
-    golden_s = run_cli_here(
-        paths, cfg, "verify_golden_cpu", verify_cli, "--network", net,
-        "--seeds", VERIFY_SEEDS, "--write_golden_renders", golden,
-        "--report", os.path.join(d, "golden_report.json"), "--device", "cpu")
     t0 = time.perf_counter()
-    os.environ.update(env)
     try:
-        clips, tok = load_clip_models("double", clip_dir=files["clip_dir"],
-                                      device="cpu")
-    finally:
-        os.environ.pop("STYLEMC_CLIP_BPE")
+        verify_cli.main(args=[
+            "--network", net, "--seeds", VERIFY_SEEDS,
+            "--write_golden_renders", golden, "--report",
+            os.path.join(d, "golden_report.json"), "--device", "cpu"],
+            standalone_mode=False)
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            raise RuntimeError(f"verify --write_golden_renders exited "
+                               f"{e.code}")
+    golden_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg, params = load_generator(net, device="cpu")
+    clips = {name: load_clip(name, files["clip_dir"], device="cpu")
+             for name in ("ViT-B/32", "ViT-B/16")}
     styles = seed_styles(torch, params, inference_cfg(cfg),
                          num_range(VERIFY_SEEDS), "cpu")
     direction, info = find_direction(
         params, cfg, styles.numpy(), clips,
         load_arcface(files["arcface"], device="cpu"),
         FindDirectionConfig(resolution=min(256, cfg.img_resolution)),
-        tokenizer=tok)
+        tokenizer=SimpleTokenizer(files["bpe"]))
     recorded = os.path.join(d, "direction_cpu.npz")
     np.savez(recorded, s=direction.numpy())
-    cpu_direction_s = time.perf_counter() - t0
-    del clips, params
+    return {"golden": golden, "direction": recorded, "golden_s": golden_s,
+            "direction_s": time.perf_counter() - t0,
+            "direction_steps": info["iterations"]}
+
+
+def phase_verify_refs(torch, models, net, tmp):
+    """verify's weight files, then the CPU's references for its golden
+    renders and direction check, computed in a background thread while the
+    card runs tf_legacy and clis_misc; (files, the thread's future)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from stylemc_torch.io import load_generator
+
+    cfg, _ = load_generator(net, device="cpu")
+    t0 = time.perf_counter()
+    # the train phase's seeded CLIP and ArcFace, their CPU copies
+    files = write_verify_files(torch, models[2], models[3],
+                               cfg.img_resolution, tmp)
+    emit({"phase": "verify_refs", "write_files_s": time.perf_counter() - t0})
+    pool = ThreadPoolExecutor(max_workers=1)
+    refs = pool.submit(_verify_cpu_refs, torch, net, files)
+    pool.shutdown(wait=False)
+    return files, refs
+
+
+def phase_verify(net, tf_pkl, deeplab_ckpt, landmark_files, files, refs,
+                 smi, paths):
+    """`python -m stylemc_torch verify` on the card with every check: the
+    FFHQ-256 network, the TF pickle, e4e, CLIP, ArcFace, Inception (and the
+    FID split), DeepLab and MobileNet from seeded files, golden renders from
+    a CPU run of the port's own verify --write_golden_renders, and the
+    direction of the port's CPU find_direction on the same files and
+    seeds (`phase_verify_refs`)."""
+    t0 = time.perf_counter()
+    cpu = refs.result()
+    wait_s = time.perf_counter() - t0
+    golden, recorded = cpu["golden"], cpu["direction"]
+    env = {"STYLEMC_CLIP_BPE": files["bpe"]}
+    d = os.path.dirname(files["e4e"])
 
     report = os.path.join(d, "verify_report.json")
     t0 = time.perf_counter()
@@ -5487,9 +5523,10 @@ def phase_verify(torch, models, net, tf_pkl, deeplab_ckpt, landmark_files,
                 "cosine_mean"] >= 0.99,
             "launches": launches == want}
     emit({"phase": "verify", "card": smi, "seeds": VERIFY_SEEDS,
-          "fid_samples": VERIFY_FID_SAMPLES, "write_files_s": write_s,
-          "cpu_golden_s": golden_s, "cpu_direction_s": cpu_direction_s,
-          "cpu_direction_steps": info["iterations"], "verify_s": verify_s,
+          "fid_samples": VERIFY_FID_SAMPLES, "cpu_golden_s": cpu["golden_s"],
+          "cpu_direction_s": cpu["direction_s"],
+          "cpu_direction_steps": cpu["direction_steps"],
+          "cpu_refs_wait_s": wait_s, "verify_s": verify_s,
           "check_seconds": {k: v["seconds"] for k, v in checks.items()},
           "details": {k: v.get("details", v.get("error"))
                       for k, v in checks.items()},
@@ -5497,7 +5534,6 @@ def phase_verify(torch, models, net, tf_pkl, deeplab_ckpt, landmark_files,
     if not all(gate.values()):
         raise AssertionError(f"verify checks failed: {gate}\n"
                              f"{proc.stdout[-3000:]}")
-    return files
 
 
 def phase_clis_misc(torch, net, verify_files, direction, tmp, smi, paths):
@@ -5544,13 +5580,11 @@ def phase_clis_misc(torch, net, verify_files, direction, tmp, smi, paths):
                 "1", "--out_file", outs[device], "--batch",
                 str(CLIP_FILTER_IMAGES), "--device", device)
 
-    # the card's run as a subprocess, the CPU's in this process
-    seconds = {CARD: run_cli(paths, cfg, f"clip_filter_{CARD}",
-                             "clip_filter", 0, 0, *args(CARD), env=env)[0]}
     os.environ.update(env)
     try:
-        seconds["cpu"] = run_cli_here(paths, cfg, "clip_filter_cpu",
-                                      clip_filter_cli, *args("cpu"))
+        seconds = {device: run_cli_here(paths, cfg, f"clip_filter_{device}",
+                                        clip_filter_cli, *args(device))
+                   for device in (CARD, "cpu")}
     finally:
         for k in env:
             os.environ.pop(k)
@@ -5559,24 +5593,25 @@ def phase_clis_misc(torch, net, verify_files, direction, tmp, smi, paths):
     with contextlib.redirect_stdout(listing):
         stylemc_main(["stylemc_torch"])
     listing = listing.getvalue()
-    env_list = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     other = os.path.join(d, "direction_other.npz")
     rs = np.random.RandomState(2)
     s0 = np.load(direction)["s"]
     np.savez(other, s=s0 + rs.randn(*s0.shape).astype(np.float32) * 0.01
              * (s0 != 0))
-    cmp = subprocess.run([sys.executable, "-m", "stylemc_torch",
-                          "compare_directions", direction, other], cwd=ROOT,
-                         timeout=120, capture_output=True, text=True,
-                         env=env_list)
-    result = json.loads(cmp.stdout.strip().splitlines()[-1]) \
-        if cmp.returncode == 0 else {}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            stylemc_main(["stylemc_torch", "compare_directions", direction,
+                          other])
+        except SystemExit as e:
+            if e.code not in (None, 0):
+                raise
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
     checks = {"kept_indices_equal": np.array_equal(got["indices"],
                                                    want["indices"]),
               "styles_equal": np.array_equal(got["s"], want["s"]),
               "listing": all(f"  {name} " in listing for name, _ in CLIS),
-              "compare_directions": cmp.returncode == 0
-              and result.get("pass") is True}
+              "compare_directions": result.get("pass") is True}
     emit({"phase": "clis_misc", "card": smi,
           "clip_filter": {"images": CLIP_FILTER_IMAGES,
                           "kept": got["indices"].tolist(),
@@ -5588,7 +5623,7 @@ def phase_clis_misc(torch, net, verify_files, direction, tmp, smi, paths):
           "clis_listed": len(CLIS), "checks": checks})
     if not all(checks.values()):
         raise AssertionError(f"clis_misc checks failed: {checks}\n"
-                             f"{listing}{cmp.stderr[-2000:]}")
+                             f"{listing}{out.getvalue()}")
 
 
 def main() -> int:
@@ -5676,11 +5711,13 @@ def main() -> int:
         # the TF pickle, the verify harness and the small CLIs, on the
         # train phase's perception models, DeepLab's checkpoint and the
         # landmark files
+        verify_files, verify_refs = run("verify_refs", phase_verify_refs,
+                                        torch, models, net, tmp)
         tf_pkl = run("tf_legacy", phase_tf_legacy, torch, tmp, smi, paths)
-        verify_files = run("verify", phase_verify, torch, models, net,
-                           tf_pkl, ckpt, landmark_files, tmp, smi, paths)
         run("clis_misc", phase_clis_misc, torch, net, verify_files,
             direction, tmp, smi, paths)
+        run("verify", phase_verify, net, tf_pkl, ckpt, landmark_files,
+            verify_files, verify_refs, smi, paths)
         del editor, models, landmarker, styles, mapper_styles, seg
         torch.cuda.empty_cache()
         editor = run("serve", phase_serve, torch, net, direction, smi, paths)

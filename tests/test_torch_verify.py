@@ -9,6 +9,9 @@ and a MobileNet state dict. Their reports must hold the same checks with
 the same `ok`, integer details equal and real ones within the tolerances
 below, and the same exit code. The golden renders cross the packages (JAX
 writes, the port reads: max_abs ≤ 1), and a failing check exits 1 in both.
+The Inception FID split and the direction check run in
+`test_torch_verify_fid.py` and `test_torch_verify_direction.py`, on this
+module's files.
 """
 
 import json
@@ -140,15 +143,16 @@ def _compare_reports(got, want):
 
 
 def test_every_check_matches_jax(files):
+    """Every check but the Inception FID split (`test_torch_verify_fid.py`)
+    and the direction (`test_torch_verify_direction.py`), which run in
+    files of their own so that the suite's workers share them."""
     golden = {p: os.path.join(files["dir"], f"golden_{p}.npz")
               for p in ("jax", "torch")}
     common = ["--network", files["network"],
               "--tf_network", files["tf_network"], "--e4e", files["e4e"],
               "--clip_dir", files["clip_dir"], "--arcface", files["arcface"],
-              "--inception", files["inception"],
               "--deeplab", files["deeplab"],
-              "--mobilenet", files["mobilenet"],
-              "--seeds", "0-3", "--fid_samples", "8"]
+              "--mobilenet", files["mobilenet"], "--seeds", "0-3"]
     jr, jrep = _run(jax_verify, files, "jax.json",
                     common + ["--write_golden_renders", golden["jax"]],
                     device=False)
@@ -157,8 +161,8 @@ def test_every_check_matches_jax(files):
     assert tr.exit_code == jr.exit_code == 0, (tr.output, jr.output)
     assert trep["all_ok"] and jrep["all_ok"]
     assert list(trep["checks"]) == [
-        "generator", "tf_generator", "clip", "arcface", "e4e", "inception",
-        "fid_sanity", "deeplab", "mobilenet_landmarks"]
+        "generator", "tf_generator", "clip", "arcface", "e4e", "deeplab",
+        "mobilenet_landmarks"]
     _compare_reports(trep, jrep)
     # the golden renders cross the packages: JAX's file read by the port
     tr2, rep = _run(torch_verify, files, "cross.json",
@@ -186,86 +190,6 @@ def test_failing_check_exits_1_in_both(files):
     assert tr.exit_code == jr.exit_code == 1
     assert not trep["all_ok"] and not jrep["all_ok"]
     _compare_reports(trep, jrep)
-
-
-def test_direction_check_matches_jax(files):
-    """--torch_direction: each package's check against a direction its own
-    find_direction recorded on the same files and seeds reads cosine 1, in
-    reports with the same keys; a flipped recording fails (exit 1).
-
-    The two packages' directions are not compared with each other here:
-    the run starts at Δs = 0, where the edited render equals the original.
-    In the port the two renders are bitwise equal, so the CLIP term's
-    feature difference is exactly zero; in JAX the step renders through
-    another XLA program and the difference is fp32 noise (the first loss
-    reads 1.5 against 1.5036), so the first step's direction is set by
-    rounding. The find_direction parity tests start from a resume
-    direction for that reason."""
-    import importlib
-
-    from stylemc_tpu.io import load_generator as jax_load_generator
-    from stylemc_tpu.models.clip.load import load_clip as jax_load_clip
-    from stylemc_tpu.models.clip.tokenizer import SimpleTokenizer
-    from stylemc_tpu.utils.model_zoo import load_arcface as jax_load_arcface
-    from stylemc_torch.io import load_generator
-    from stylemc_torch.models.stylegan2.generator import (
-        inference_cfg, mapping, w_to_s)
-    from stylemc_torch.train.find_direction import (FindDirectionConfig,
-                                                    find_direction)
-    from stylemc_torch.utils.model_zoo import load_arcface, load_clip_models
-
-    jfd = importlib.import_module("stylemc_tpu.train.find_direction")
-    cfg, params = load_generator(files["network"], device="cpu")
-    icfg = inference_cfg(cfg)
-    zs = np.concatenate([np.random.RandomState(s).randn(1, cfg.z_dim)
-                         for s in range(4)]).astype(np.float32)
-    with torch.no_grad():
-        styles = w_to_s(params, icfg, mapping(params, icfg,
-                                              torch.from_numpy(zs),
-                                              truncation_psi=0.7)).numpy()
-    bpe = files["env"]["STYLEMC_CLIP_BPE"]
-    os.environ["STYLEMC_CLIP_BPE"] = bpe
-    try:
-        clips, tok = load_clip_models("double", clip_dir=files["clip_dir"],
-                                      device="cpu")
-    finally:
-        os.environ.pop("STYLEMC_CLIP_BPE")
-    d, _ = find_direction(params, cfg, styles, clips,
-                          load_arcface(files["arcface"], device="cpu"),
-                          FindDirectionConfig(resolution=RES), tokenizer=tok)
-    jcfg, jparams = jax_load_generator(files["network"])
-    jd, _ = jfd.find_direction(
-        jparams, jcfg, styles,
-        {name: jax_load_clip(name, files["clip_dir"])
-         for name in ("ViT-B/32", "ViT-B/16")},
-        jax_load_arcface(files["arcface"]),
-        jfd.FindDirectionConfig(resolution=RES),
-        tokenizer=SimpleTokenizer(bpe))
-    recorded = {"torch": d.numpy(), "jax": np.asarray(jd)}
-    reports = {}
-    for name, cli, device in (("torch", torch_verify, True),
-                              ("jax", jax_verify, False)):
-        rec = os.path.join(files["dir"], f"direction_{name}.npz")
-        np.savez(rec, s=recorded[name])
-        res, reports[name] = _run(
-            cli, files, f"{name}_dir.json",
-            ["--network", files["network"], "--clip_dir", files["clip_dir"],
-             "--arcface", files["arcface"], "--seeds", "0-3",
-             "--torch_direction", rec], device=device)
-        assert res.exit_code == 0, res.output
-        det = reports[name]["checks"]["direction_vs_torch"]["details"]
-        assert det["cosine_mean"] >= 0.999 and det["threshold"] == 0.99
-    _compare_reports(reports["torch"], reports["jax"])
-    rec = os.path.join(files["dir"], "direction_flipped.npz")
-    np.savez(rec, s=-recorded["torch"])
-    res, rep = _run(torch_verify, files, "torch_dir_bad.json",
-                    ["--network", files["network"],
-                     "--clip_dir", files["clip_dir"],
-                     "--arcface", files["arcface"], "--seeds", "0-3",
-                     "--torch_direction", rec])
-    assert res.exit_code == 1
-    assert not rep["all_ok"]
-    assert not rep["checks"]["direction_vs_torch"]["ok"]
 
 
 def test_port_reads_the_wrapped_checkpoint_layouts(files, tmp_path):
