@@ -257,10 +257,11 @@ script exits non-zero:
           batch 1 on the plain path, images/s both ways. dp_metrics
           (after metrics): FID, KID (rtol 1e-5) and PPL (1e-3) with mesh=
           on 64 images against the same calls without it
-  verify_refs  (after mapper_clis) writes verify's weight files and starts
-          the CPU's references for it (golden renders and a direction, below)
-          in a background thread, which runs beside tf_legacy and clis_misc
-  tf_legacy  a TF1 (G, D, Gs) pickle of a seeded
+  verify_refs  (before mapper_clis) writes verify's weight files and
+          starts the CPU's references for it (golden renders and a
+          direction, below) in a background thread, which runs beside
+          mapper_clis, tf_legacy and clis_misc
+  tf_legacy  (after mapper_clis) a TF1 (G, D, Gs) pickle of a seeded
           stylegan2-ffhq-config-f (resolution 1024, fmap_base 16384,
           fmap_max 512, 8 mapping layers, no fp16, no clamp; ToRGB weights
           scaled as the e4e decoder's) and its resnet discriminator at
@@ -5449,7 +5450,8 @@ def _verify_cpu_refs(torch, net, files):
 def phase_verify_refs(torch, models, net, tmp):
     """verify's weight files, then the CPU's references for its golden
     renders and direction check, computed in a background thread while the
-    card runs tf_legacy and clis_misc; (files, the thread's future)."""
+    card runs mapper_clis, tf_legacy and clis_misc; (files, the thread's
+    future)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from stylemc_torch.io import load_generator
@@ -5706,13 +5708,15 @@ def main() -> int:
             paths)
         ckpt, seg = run("deeplab", phase_deeplab, torch, cfg1024, tmp, smi,
                         paths)
-        run("mapper_clis", phase_mapper_clis, torch, cfg1024, net1024,
-            net1024b, mapper_styles, ckpt, seg, tmp, smi, paths)
-        # the TF pickle, the verify harness and the small CLIs, on the
-        # train phase's perception models, DeepLab's checkpoint and the
-        # landmark files
+        # verify's files from the train phase's perception models, and its
+        # CPU references computed beside mapper_clis, tf_legacy and
+        # clis_misc (no timed step runs there)
         verify_files, verify_refs = run("verify_refs", phase_verify_refs,
                                         torch, models, net, tmp)
+        run("mapper_clis", phase_mapper_clis, torch, cfg1024, net1024,
+            net1024b, mapper_styles, ckpt, seg, tmp, smi, paths)
+        # the TF pickle, the verify harness and the small CLIs, on DeepLab's
+        # checkpoint and the landmark files
         tf_pkl = run("tf_legacy", phase_tf_legacy, torch, tmp, smi, paths)
         run("clis_misc", phase_clis_misc, torch, net, verify_files,
             direction, tmp, smi, paths)

@@ -16,6 +16,7 @@ module's files.
 
 import json
 import os
+import pickle
 
 import jax
 import numpy as np
@@ -56,54 +57,68 @@ def _save_state(path, state):
     return path
 
 
-@pytest.fixture(scope="module")
-def files(tmp_path_factory):
-    d = str(tmp_path_factory.mktemp("verify"))
+def write_files(d, parts):
+    """The seeded 32 px network's `.pkl` and, by name in `parts`, the other
+    files of a verify run: "tf", "e4e", "clip", "arcface", "inception",
+    "deeplab", "mobilenet"."""
     cfg = jgen.GeneratorConfig(img_resolution=RES, channel_base=2048,
                                channel_max=64, mapping_layers=2)
-    pkl = fabricate_pkl(d, cfg, jgen.init_generator_params(
-        jax.random.PRNGKey(0), cfg))
-    Network = _install_fake_tflib()
-    tf_cfg = jgen.GeneratorConfig(img_resolution=RES, channel_base=2048,
-                                  channel_max=64, mapping_layers=2,
-                                  conv_clamp=None, num_fp16_res=0)
-    tf_G = fabricate_tf_generator(Network, tf_cfg, jgen.init_generator_params(
-        jax.random.PRNGKey(4), tf_cfg))
-    tf_D = fabricate_tf_discriminator(Network, RES,
-                                      jdisc.init_discriminator_params(
-                                          jax.random.PRNGKey(5), size=RES))
-    tf_pkl = os.path.join(d, "tf_net.pkl")
-    import pickle
-    with open(tf_pkl, "wb") as f:
-        pickle.dump((tf_G, tf_D, tf_G), f)
+    out = {"dir": d, "env": {}, "network": fabricate_pkl(
+        d, cfg, jgen.init_generator_params(jax.random.PRNGKey(0), cfg))}
     gen = torch.Generator().manual_seed
-    arcface = _save_state(os.path.join(d, "model_ir_se50.pth"),
-                          state_from_params(
-                              tarc.params_from_torch_state,
-                              tarc.init_backbone_params(gen(1),
-                                                        device="cpu")))
-    inception = _save_state(os.path.join(d, "inception.pth"),
-                            state_from_params(
-                                tinc.params_from_torch_state,
-                                tinc.init_inception_params(gen(2),
-                                                           device="cpu")))
+    if "tf" in parts:
+        Network = _install_fake_tflib()
+        tf_cfg = jgen.GeneratorConfig(img_resolution=RES, channel_base=2048,
+                                      channel_max=64, mapping_layers=2,
+                                      conv_clamp=None, num_fp16_res=0)
+        out["tf_network"] = os.path.join(d, "tf_net.pkl")
+        with open(out["tf_network"], "wb") as f:
+            pickle.dump((fabricate_tf_generator(
+                Network, tf_cfg, jgen.init_generator_params(
+                    jax.random.PRNGKey(4), tf_cfg)),
+                fabricate_tf_discriminator(
+                    Network, RES, jdisc.init_discriminator_params(
+                        jax.random.PRNGKey(5), size=RES)),
+                fabricate_tf_generator(
+                    Network, tf_cfg, jgen.init_generator_params(
+                        jax.random.PRNGKey(4), tf_cfg))), f)
+    if "e4e" in parts:
+        out["e4e"] = fabricate_e4e_pt(os.path.join(d, "e4e.pt"),
+                                      stylegan_size=RES)
+    if "clip" in parts:
+        out["clip_dir"] = fabricate_clip_dir(os.path.join(d, "clip"),
+                                             resolution=64)
+        out["env"]["STYLEMC_CLIP_BPE"] = os.path.join(
+            out["clip_dir"], "bpe_simple_vocab_16e6.txt.gz")
+    if "arcface" in parts:
+        out["arcface"] = _save_state(
+            os.path.join(d, "model_ir_se50.pth"), state_from_params(
+                tarc.params_from_torch_state,
+                tarc.init_backbone_params(gen(1), device="cpu")))
+    if "inception" in parts:
+        out["inception"] = _save_state(
+            os.path.join(d, "inception.pth"), state_from_params(
+                tinc.params_from_torch_state,
+                tinc.init_inception_params(gen(2), device="cpu")))
     # the flat state-dict layout the JAX harness reads: DeepLab at full
     # ResNet-101 depth (its reader's), narrow; MobileNet's 'module.' names
-    deeplab = _save_state(os.path.join(d, "deeplab_model.pth"),
-                          tdl.params_to_torch_state(tdl.init_deeplab_params(
-                              gen(3), width=8)))
-    mobilenet = os.path.join(d, "mobilenet.pth")
-    torch.save(tmb.params_to_torch_state(tmb.init_mobilenet_gdconv_params(
-        gen(4), device="cpu")), mobilenet)
-    clip_dir = fabricate_clip_dir(os.path.join(d, "clip"), resolution=64)
-    return {"dir": d, "network": pkl, "tf_network": tf_pkl,
-            "e4e": fabricate_e4e_pt(os.path.join(d, "e4e.pt"),
-                                    stylegan_size=RES),
-            "clip_dir": clip_dir, "arcface": arcface,
-            "inception": inception, "deeplab": deeplab,
-            "mobilenet": mobilenet,
-            "env": {"STYLEMC_CLIP_BPE": os.path.join(
-                clip_dir, "bpe_simple_vocab_16e6.txt.gz")}}
+    if "deeplab" in parts:
+        out["deeplab"] = _save_state(
+            os.path.join(d, "deeplab_model.pth"), tdl.params_to_torch_state(
+                tdl.init_deeplab_params(gen(3), width=8)))
+    if "mobilenet" in parts:
+        out["mobilenet"] = os.path.join(d, "mobilenet.pth")
+        torch.save(tmb.params_to_torch_state(
+            tmb.init_mobilenet_gdconv_params(gen(4), device="cpu")),
+            out["mobilenet"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    return write_files(str(tmp_path_factory.mktemp("verify")),
+                       ("tf", "e4e", "clip", "arcface", "deeplab",
+                        "mobilenet"))
 
 
 def _run(cli, files, report, args, device=True):

@@ -1,19 +1,27 @@
 """The verify harness's direction check (--torch_direction) in the port and
-in the JAX package, on `test_torch_verify.py`'s seeded files (a file of its
-own: each package trains a direction at full IR-SE-50 width, twice)."""
+in the JAX package, on seeded files written as `test_torch_verify.py`
+writes them (a file of its own: each package trains a direction at full
+IR-SE-50 width, twice)."""
 
 import os
 
 import numpy as np
+import pytest
 import torch
 
-from test_torch_verify import RES, _compare_reports, _run, files  # noqa: F401
+from test_torch_verify import RES, _compare_reports, _run, write_files
 from stylemc_tpu.cli.verify_weights import main as jax_verify
 from stylemc_torch.cli.verify_weights import main as torch_verify
 from torch_threads import one_torch_thread  # noqa: F401
 
 
-def test_direction_check_matches_jax(files):  # noqa: F811
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    return write_files(str(tmp_path_factory.mktemp("verify_direction")),
+                       ("clip", "arcface"))
+
+
+def test_direction_check_matches_jax(files):
     """--torch_direction: each package's check against a direction its own
     find_direction recorded on the same files and seeds reads cosine 1, in
     reports with the same keys; a flipped recording fails (exit 1).

@@ -1,14 +1,23 @@
 """The verify harness's Inception check and FID split, the port's against
-the JAX package's, on `test_torch_verify.py`'s seeded files (a file of its
-own: each package's FID spends ~10 s in scipy's sqrtm at 2048 features)."""
+the JAX package's, on seeded files written as `test_torch_verify.py`
+writes them (a file of its own: each package's FID spends ~10 s in scipy's
+sqrtm at 2048 features)."""
 
-from test_torch_verify import RES, _compare_reports, _run, files  # noqa: F401
+import pytest
+
+from test_torch_verify import RES, _compare_reports, _run, write_files
 from stylemc_tpu.cli.verify_weights import main as jax_verify
 from stylemc_torch.cli.verify_weights import main as torch_verify
 from torch_threads import one_torch_thread  # noqa: F401
 
 
-def test_inception_and_fid_split_match_jax(files):  # noqa: F811
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    return write_files(str(tmp_path_factory.mktemp("verify_fid")),
+                       ("inception",))
+
+
+def test_inception_and_fid_split_match_jax(files):
     args = ["--network", files["network"], "--inception", files["inception"],
             "--seeds", "0-3", "--fid_samples", "8"]
     jr, jrep = _run(jax_verify, files, "jax_fid.json", args, device=False)
