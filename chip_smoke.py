@@ -1363,14 +1363,20 @@ def phase_serve(torch, net, direction, smi, paths):
     return editor
 
 
+# traces of one call before a missed-events trace fails its phase (a
+# host-bound DeepLab call once missed events in three traces running)
+PROFILE_TRIES = 6
+
+
 def profiled(torch, fn, record_shapes: bool = False):
     """Profile one call of `fn` (after an untraced one): (profile, host
     wall ms, CUDA-event span ms, device busy ms). With `record_shapes` the
     host's ops are traced too, with their input shapes. The profiler can
     miss device events, so a trace whose busy time is under half the span
-    is taken again, up to three times; a host-bound call's span varies
-    from trace to trace, so a trace whose busy time repeats the previous
-    one's within 2 % is kept too (missed events would not repeat)."""
+    is taken again, up to PROFILE_TRIES times; a host-bound call's span
+    varies from trace to trace, so a trace whose busy time repeats the
+    previous one's within 2 % is kept too (missed events would not
+    repeat)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1380,7 +1386,7 @@ def profiled(torch, fn, record_shapes: bool = False):
     fn()
     torch.cuda.synchronize()
     busy_before = None
-    for _ in range(3):
+    for _ in range(PROFILE_TRIES):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         with profile(activities=activities,
@@ -1401,7 +1407,8 @@ def profiled(torch, fn, record_shapes: bool = False):
             return prof, wall_ms, span_ms, busy_ms
         busy_before = busy_ms
     raise RuntimeError(f"the profiler recorded {busy_ms} ms of device "
-                       f"time in a {span_ms} ms span, three times")
+                       f"time in a {span_ms} ms span, {PROFILE_TRIES} "
+                       f"times")
 
 
 def device_breakdown(torch, fn, top=10):
