@@ -257,11 +257,8 @@ script exits non-zero:
           batch 1 on the plain path, images/s both ways. dp_metrics
           (after metrics): FID, KID (rtol 1e-5) and PPL (1e-3) with mesh=
           on 64 images against the same calls without it
-  verify_refs  (before mapper_clis) writes verify's weight files and
-          starts the CPU's references for it (golden renders and a
-          direction, below) in a background thread, which runs beside
-          mapper_clis, tf_legacy and clis_misc
-  tf_legacy  (after mapper_clis) a TF1 (G, D, Gs) pickle of a seeded
+  verify_files  (after mapper_clis) writes verify's weight files
+  tf_legacy  a TF1 (G, D, Gs) pickle of a seeded
           stylegan2-ffhq-config-f (resolution 1024, fmap_base 16384,
           fmap_max 512, 8 mapping layers, no fp16, no clamp; ToRGB weights
           scaled as the e4e decoder's) and its resnet discriminator at
@@ -272,18 +269,22 @@ script exits non-zero:
           batch of 8 and its logits card against CPU on the card's renders
           (max |Δ| / max |logit| 1e-4), each gate beside a TF32 control;
           the legacy CLI's .npz bit-equal to the loaded params
-  verify  (after clis_misc) python -m stylemc_torch verify on the card
-          with every check:
+  verify  (after clis_misc) first the CPU's references, with nothing on
+          the card: a CPU run of verify --write_golden_renders and the
+          port's CPU find_direction on the same files and seeds 0-1 (4
+          steps of 2 items); then python -m stylemc_torch verify on the
+          card with every check:
           the FFHQ-256 network, the TF pickle, an e4e checkpoint at 256,
           a CLIP dir (the train phase's seeded ViT-B/32 and B/16 in the
           OpenAI names, a stand-in BPE vocabulary), its seeded IR-SE-50, a
           seeded Inception v3 (FID split of 16 a side), the deeplab
-          phase's checkpoint and the landmark files' MobileNet; golden
-          renders from a CPU run of verify --write_golden_renders and the
-          direction of the port's CPU find_direction on the same files and
-          seeds 0-3 (4 steps): exit 0, all_ok, PSNR >= 30 dB, cosine
-          >= 0.99, each check's seconds; B1 6 a FFHQ-256 call and 8 for
-          the TF network's, B2 6 a step
+          phase's checkpoint and the landmark files' MobileNet, and the
+          two references: exit 0, all_ok, PSNR >= 30 dB, cosine >= 0.99,
+          each check's seconds; B1 6 a FFHQ-256 call and 8 for the TF
+          network's, B2 6 a step. Its golden renders against the CPU's
+          (±1, the share off by one gated at 1e-3) and its direction's
+          1 - cosine to the CPU's, each beside a TF32 verify run (in
+          process, TF32 in cuDNN and cuBLAS) that must fail the gate
   clis_misc  clip_filter over 16 rendered PNGs (full-width ViT-B/32 from
           the verify CLIP dir) on the card and on the CPU: kept indices
           and styles equal; python -m stylemc_torch listing the CLIs and
@@ -5141,8 +5142,6 @@ def modconv_entries(rows, paths, smi, mma_rate):
 
 # ------------------------------------------------ TF pickles, verify, CLIs
 
-# the device of these phases (a CPU rehearsal at small sizes sets "cpu")
-CARD = "cuda"
 # stylegan2-ffhq-config-f: fmap_base 16384 (channel_base 32768), fmap_max
 # 512, 8 mapping layers; no fp16, no clamp
 TF_CFG_KW = dict(img_resolution=1024, num_fp16_res=0, conv_clamp=None)
@@ -5152,7 +5151,9 @@ TF_PARITY_ITEMS = 2          # renders and logits held card against CPU
 TF_RENDER_OFF_SHARE = 1e-3   # uint8 values off by one, card against CPU
 TF_D_RTOL = 1e-4             # max |Δ logit| / max |logit|, card against CPU
 TF_TIMED_ITERS = 5
-VERIFY_SEEDS = "0-3"         # 4 items: 4 find_direction steps (4 epochs)
+VERIFY_SEEDS = "0-1"         # 2 items: 4 find_direction steps (4 epochs)
+VERIFY_RENDER_OFF_SHARE = 1e-3  # golden uint8 values off by one, card/CPU
+VERIFY_DIRECTION_GATE = 1e-3    # 1 - cosine_mean of the direction, card/CPU
 VERIFY_FID_SAMPLES = 16      # one batch of 16 a side
 VERIFY_E4E_SEEDS = {"encoder": 30, "decoder": 31, "latent_avg": 32}
 VERIFY_INCEPTION_SEED = 33
@@ -5163,11 +5164,6 @@ CLIP_FILTER_PROMPTS = "a photo of a man|a photo of a woman"
 CLIP_BPE_MERGES = [("t", "h"), ("a", "n"), ("i", "n"), ("o", "f"),
                    ("r", "e"), ("f", "a"), ("c", "e"), ("m", "a"),
                    ("w", "o"), ("e", "d")]
-
-
-def _sync(torch):
-    if CARD == "cuda":
-        torch.cuda.synchronize()
 
 
 def _same(a, b) -> bool:
@@ -5242,14 +5238,14 @@ def phase_tf_legacy(torch, tmp, smi, paths):
     write_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    tcfg, params = load_generator(path, device=CARD)
-    _sync(torch)
+    tcfg, params = load_generator(path, device="cuda")
+    torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     gp = params_to_numpy(params)
     params_equal = _same(gp, params_to_numpy(g))
     icfg = inference_cfg(tcfg)
     cpu_params = params_from_numpy(gp, "cpu")
-    s8 = seed_styles(torch, params, icfg, TF_RENDER_SEEDS, CARD)
+    s8 = seed_styles(torch, params, icfg, TF_RENDER_SEEDS, "cuda")
 
     def render():
         with torch.inference_mode():
@@ -5258,18 +5254,18 @@ def phase_tf_legacy(torch, tmp, smi, paths):
     img, launches = count_launches(render)
     record_launches(paths, tcfg, "tf_legacy_render", launches, 1)
     render()
-    _sync(torch)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(TF_TIMED_ITERS):
         render()
-    _sync(torch)
+    torch.cuda.synchronize()
     render_s = (time.perf_counter() - t0) / TF_TIMED_ITERS
     finite = bool(torch.isfinite(img).all())
 
     # card against CPU on the first seeds, each side rendering them alone
     seeds = TF_RENDER_SEEDS[:TF_PARITY_ITEMS]
     with torch.inference_mode():
-        s2 = seed_styles(torch, params, icfg, seeds, CARD)
+        s2 = seed_styles(torch, params, icfg, seeds, "cuda")
         card_u8 = to_u8_nhwc(synthesis(params, icfg, s2)).cpu().numpy()
         with tf32_control(torch):
             tf32_u8 = to_u8_nhwc(synthesis(params, icfg, s2)).cpu().numpy()
@@ -5288,7 +5284,7 @@ def phase_tf_legacy(torch, tmp, smi, paths):
     # renders card against CPU, both sides fed the card's images
     t0 = time.perf_counter()
     size, dparams = discriminator_from_stub(load_network_pkl(path)["D"],
-                                            device=CARD)
+                                            device="cuda")
     dload_s = time.perf_counter() - t0
     d_equal = size == res and _same(params_to_numpy(dparams),
                                     params_to_numpy(d))
@@ -5304,9 +5300,9 @@ def phase_tf_legacy(torch, tmp, smi, paths):
     d_ms = event_ms(disc, iters=10, warmup=2)
     x2 = torch.from_numpy(card_u8).permute(0, 3, 1, 2).float() / 127.5 - 1
     with torch.inference_mode():
-        card_logits = discriminator_apply(dparams, x2.to(CARD)).cpu()
+        card_logits = discriminator_apply(dparams, x2.to("cuda")).cpu()
         with tf32_control(torch):
-            tf32_logits = discriminator_apply(dparams, x2.to(CARD)).cpu()
+            tf32_logits = discriminator_apply(dparams, x2.to("cuda")).cpu()
         cpu_logits = discriminator_apply(cpu_d, x2)
     scale = float(cpu_logits.abs().max())
     _gate("tf_discriminator_rel",
@@ -5409,7 +5405,7 @@ def _verify_cpu_refs(torch, net, files):
     """The CPU's golden renders (verify --write_golden_renders) and the
     direction of the port's CPU find_direction on the verify files and
     seeds; (golden path, direction path, seconds of each). Nothing here
-    launches a kernel or touches the launch counters."""
+    launches a kernel."""
     import numpy as np
 
     from stylemc_torch.cli import verify_weights as verify_cli
@@ -5454,13 +5450,8 @@ def _verify_cpu_refs(torch, net, files):
             "direction_steps": info["iterations"]}
 
 
-def phase_verify_refs(torch, models, net, tmp):
-    """verify's weight files, then the CPU's references for its golden
-    renders and direction check, computed in a background thread while the
-    card runs mapper_clis, tf_legacy and clis_misc; (files, the thread's
-    future)."""
-    from concurrent.futures import ThreadPoolExecutor
-
+def phase_verify_files(torch, models, net, tmp):
+    """verify's weight files, from the train phase's perception models."""
     from stylemc_torch.io import load_generator
 
     cfg, _ = load_generator(net, device="cpu")
@@ -5468,29 +5459,49 @@ def phase_verify_refs(torch, models, net, tmp):
     # the train phase's seeded CLIP and ArcFace, their CPU copies
     files = write_verify_files(torch, models[2], models[3],
                                cfg.img_resolution, tmp)
-    emit({"phase": "verify_refs", "write_files_s": time.perf_counter() - t0})
-    pool = ThreadPoolExecutor(max_workers=1)
-    refs = pool.submit(_verify_cpu_refs, torch, net, files)
-    pool.shutdown(wait=False)
-    return files, refs
+    emit({"phase": "verify_files", "write_files_s": time.perf_counter() - t0})
+    return files
 
 
-def phase_verify(net, tf_pkl, deeplab_ckpt, landmark_files, files, refs,
+def _verify_tf32_control(torch, args):
+    """A verify run in this process with TF32 on in cuDNN and cuBLAS (its
+    own disable_tf32 held off); its report. Its launches are not counted
+    to a path, and its checks may fail."""
+    import stylemc_torch.device as device
+    from stylemc_torch.cli import verify_weights as verify_cli
+
+    saved = device.disable_tf32
+    device.disable_tf32 = lambda dev: None
+    try:
+        with tf32_control(torch):
+            verify_cli.main(args=list(args), standalone_mode=False)
+    except SystemExit:
+        pass
+    finally:
+        device.disable_tf32 = saved
+    with open(args[args.index("--report") + 1]) as f:
+        return json.load(f)
+
+
+def phase_verify(torch, net, tf_pkl, deeplab_ckpt, landmark_files, files,
                  smi, paths):
     """`python -m stylemc_torch verify` on the card with every check: the
     FFHQ-256 network, the TF pickle, e4e, CLIP, ArcFace, Inception (and the
     FID split), DeepLab and MobileNet from seeded files, golden renders from
     a CPU run of the port's own verify --write_golden_renders, and the
-    direction of the port's CPU find_direction on the same files and
-    seeds (`phase_verify_refs`)."""
-    t0 = time.perf_counter()
-    cpu = refs.result()
-    wait_s = time.perf_counter() - t0
+    direction of the port's CPU find_direction on the same files and seeds,
+    both computed first with nothing on the card. The card's golden renders
+    and its direction's cosine are gated against the CPU's beside a TF32
+    verify run."""
+    import numpy as np
+
+    cpu = _verify_cpu_refs(torch, net, files)
     golden, recorded = cpu["golden"], cpu["direction"]
     env = {"STYLEMC_CLIP_BPE": files["bpe"]}
     d = os.path.dirname(files["e4e"])
 
     report = os.path.join(d, "verify_report.json")
+    card_golden = os.path.join(d, "golden_card.npz")
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-c", CLI_RUNNER, "stylemc_torch", "verify",
@@ -5499,9 +5510,9 @@ def phase_verify(net, tf_pkl, deeplab_ckpt, landmark_files, files, refs,
          "--inception", files["inception"], "--deeplab", deeplab_ckpt,
          "--mobilenet", landmark_files[1], "--seeds", VERIFY_SEEDS,
          "--fid_samples", str(VERIFY_FID_SAMPLES),
-         "--golden_renders", golden, "--torch_direction", recorded,
-         "--report", report, "--device", CARD], cwd=ROOT, timeout=600,
-        capture_output=True,
+         "--golden_renders", golden, "--write_golden_renders", card_golden,
+         "--torch_direction", recorded, "--report", report,
+         "--device", "cuda"], cwd=ROOT, timeout=600, capture_output=True,
         text=True, env={**os.environ, **env})
     verify_s = time.perf_counter() - t0
     lines = proc.stdout.strip().splitlines()
@@ -5522,23 +5533,56 @@ def phase_verify(net, tf_pkl, deeplab_ckpt, landmark_files, files, refs,
     paths["verify"] = {"launches": launches,
                        "synthesis_calls": calls256 + 1,
                        "backward_calls": steps, "upper_blocks": "6 and 8"}
+
+    # the TF32 control: the golden renders and the direction check again
+    tf32_golden = os.path.join(d, "golden_tf32.npz")
+    t0 = time.perf_counter()
+    os.environ.update(env)
+    try:
+        ctl = _verify_tf32_control(torch, [
+            "--network", net, "--clip_dir", files["clip_dir"],
+            "--arcface", files["arcface"], "--seeds", VERIFY_SEEDS,
+            "--golden_renders", golden, "--write_golden_renders",
+            tf32_golden, "--torch_direction", recorded, "--report",
+            os.path.join(d, "verify_tf32_report.json"), "--device", "cuda"])
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    tf32_s = time.perf_counter() - t0
+    cpu_u8 = np.load(golden)["images"]
+    card_max, card_share = _u8_parity(np.load(card_golden)["images"], cpu_u8)
+    tf32_max, tf32_share = _u8_parity(np.load(tf32_golden)["images"], cpu_u8)
+    gates = {}
+    _gate("verify_golden_off_by_one_share", card_share, tf32_share,
+          VERIFY_RENDER_OFF_SHARE, gates)
+    direction = checks["direction_vs_torch"]["details"]
+    tf32_direction = ctl["checks"]["direction_vs_torch"]["details"]
+    _gate("verify_direction_one_minus_cosine",
+          1 - direction["cosine_mean"], 1 - tf32_direction["cosine_mean"],
+          VERIFY_DIRECTION_GATE, gates)
     gate = {"exit_code": proc.returncode == 0, "all_ok": rep["all_ok"],
             "every_check": sorted(checks) == sorted([
                 "generator", "tf_generator", "golden_renders", "clip",
                 "arcface", "e4e", "inception", "fid_sanity", "deeplab",
                 "mobilenet_landmarks", "direction_vs_torch"]),
             "psnr": checks["golden_renders"]["details"]["psnr_db"] >= 30.0,
-            "cosine": checks["direction_vs_torch"]["details"][
-                "cosine_mean"] >= 0.99,
+            "cosine": direction["cosine_mean"] >= 0.99,
+            "golden_max_abs": card_max <= 1,
             "launches": launches == want}
     emit({"phase": "verify", "card": smi, "seeds": VERIFY_SEEDS,
           "fid_samples": VERIFY_FID_SAMPLES, "cpu_golden_s": cpu["golden_s"],
           "cpu_direction_s": cpu["direction_s"],
           "cpu_direction_steps": cpu["direction_steps"],
-          "cpu_refs_wait_s": wait_s, "verify_s": verify_s,
+          "verify_s": verify_s, "tf32_control_s": tf32_s,
           "check_seconds": {k: v["seconds"] for k, v in checks.items()},
           "details": {k: v.get("details", v.get("error"))
                       for k, v in checks.items()},
+          "golden_parity": {"max_abs": card_max, "off_by_one": card_share,
+                            "tf32_max_abs": tf32_max,
+                            "tf32_off_by_one": tf32_share,
+                            "tf32_psnr_db": ctl["checks"]["golden_renders"][
+                                "details"]["psnr_db"]},
+          "tf32_direction": tf32_direction, "gates": gates,
           "launches": launches, "launches_want": want, "checks": gate})
     if not all(gate.values()):
         raise AssertionError(f"verify checks failed: {gate}\n"
@@ -5561,10 +5605,10 @@ def phase_clis_misc(torch, net, verify_files, direction, tmp, smi, paths):
     from stylemc_torch.models.stylegan2.generator import (inference_cfg,
                                                           synthesis)
 
-    cfg, params = load_generator(net, device=CARD)
+    cfg, params = load_generator(net, device="cuda")
     icfg = inference_cfg(cfg)
     styles = seed_styles(torch, params, icfg, range(CLIP_FILTER_IMAGES),
-                         CARD)
+                         "cuda")
 
     def render():
         with torch.inference_mode():
@@ -5581,7 +5625,7 @@ def phase_clis_misc(torch, net, verify_files, direction, tmp, smi, paths):
     env = {"STYLEMC_CLIP_DIR": verify_files["clip_dir"],
            "STYLEMC_CLIP_BPE": verify_files["bpe"]}
     outs = {device: os.path.join(d, f"kept_{device}.npz")
-            for device in (CARD, "cpu")}
+            for device in ("cuda", "cpu")}
 
     def args(device):
         return ("--images_dir", os.path.join(d, "images"), "--s_input",
@@ -5593,11 +5637,11 @@ def phase_clis_misc(torch, net, verify_files, direction, tmp, smi, paths):
     try:
         seconds = {device: run_cli_here(paths, cfg, f"clip_filter_{device}",
                                         clip_filter_cli, *args(device))
-                   for device in (CARD, "cpu")}
+                   for device in ("cuda", "cpu")}
     finally:
         for k in env:
             os.environ.pop(k)
-    got, want = np.load(outs[CARD]), np.load(outs["cpu"])
+    got, want = np.load(outs["cuda"]), np.load(outs["cpu"])
     listing = io.StringIO()
     with contextlib.redirect_stdout(listing):
         stylemc_main(["stylemc_torch"])
@@ -5624,7 +5668,7 @@ def phase_clis_misc(torch, net, verify_files, direction, tmp, smi, paths):
     emit({"phase": "clis_misc", "card": smi,
           "clip_filter": {"images": CLIP_FILTER_IMAGES,
                           "kept": got["indices"].tolist(),
-                          "card_s": seconds[CARD],
+                          "card_s": seconds["cuda"],
                           "cpu_s": seconds["cpu"]},
           "compare_directions": {k: result.get(k) for k in
                                  ("min_active_cosine", "mean_active_cosine",
@@ -5715,20 +5759,17 @@ def main() -> int:
             paths)
         ckpt, seg = run("deeplab", phase_deeplab, torch, cfg1024, tmp, smi,
                         paths)
-        # verify's files from the train phase's perception models, and its
-        # CPU references computed beside mapper_clis, tf_legacy and
-        # clis_misc (no timed step runs there)
-        verify_files, verify_refs = run("verify_refs", phase_verify_refs,
-                                        torch, models, net, tmp)
         run("mapper_clis", phase_mapper_clis, torch, cfg1024, net1024,
             net1024b, mapper_styles, ckpt, seg, tmp, smi, paths)
-        # the TF pickle, the verify harness and the small CLIs, on DeepLab's
-        # checkpoint and the landmark files
+        # the TF pickle, the small CLIs and the verify harness, on verify's
+        # seeded weight files, DeepLab's checkpoint and the landmark files
+        verify_files = run("verify_files", phase_verify_files, torch, models,
+                           net, tmp)
         tf_pkl = run("tf_legacy", phase_tf_legacy, torch, tmp, smi, paths)
         run("clis_misc", phase_clis_misc, torch, net, verify_files,
             direction, tmp, smi, paths)
-        run("verify", phase_verify, net, tf_pkl, ckpt, landmark_files,
-            verify_files, verify_refs, smi, paths)
+        run("verify", phase_verify, torch, net, tf_pkl, ckpt,
+            landmark_files, verify_files, smi, paths)
         del editor, models, landmarker, styles, mapper_styles, seg
         torch.cuda.empty_cache()
         editor = run("serve", phase_serve, torch, net, direction, smi, paths)

@@ -124,12 +124,15 @@ def test_loss_and_mapper_gradient_with_second_generator_match_jax(
         np.testing.assert_allclose(float(taux[k]), jaux[k], rtol=1e-5)
     got = {k: p.grad.numpy() for k, p in mapper.named_parameters()}
     assert sorted(got) == sorted(want) and len(got) == 20
-    # JAX's own fp32 gradient of the same loss on the same inputs: the
-    # medium rows' read 1.1e-4 to 1.5e-4 from float64, the L2 term's
-    # (s + delta) - s rounding the same in either package. Each leaf of the
-    # port is held within 1e-4 of float64, or within JAX's own fp32 reading
-    # on that leaf where that is larger; JAX's reads at least a third of
-    # 1e-4 on every leaf, so the bound is not slack above fp32's floor.
+    # JAX's own fp32 gradient of the same loss on the same inputs. On the
+    # medium rows both packages read 1.1e-4 to 1.45e-4 from float64, each
+    # within 0.2 % of the other: fp32 rounds the L2 term's (s + delta) - s
+    # alike in either. There the port is held within JAX's own reading; on
+    # every other leaf within 1e-4, as before. JAX's coarse rows read 3e-3:
+    # one pre-activation sits at the leaky-ReLU kink, which JAX's fp32
+    # crosses (test_train_latent_mapper_matches_jax), so a reading beyond
+    # 2e-4 does not raise the bound. JAX's reads at least a third of 1e-4
+    # on every leaf, so the bound is not slack above fp32's floor.
     jmtc32 = jlm.MapperTrainConfig(**_mkw(clip_type="double"))
     jb32 = jfd.make_clip_bundles(jmtc32, clips, JaxTokenizer())
     jid32, jclip32 = jfd.precompute_original_features(
@@ -141,7 +144,8 @@ def test_loss_and_mapper_gradient_with_second_generator_match_jax(
     jax32 = jmap.params_to_torch_state(jg32)
     for k in want:
         jax_reading = _rel_l2(jax32[k], want[k])
-        assert _rel_l2(got[k], want[k]) <= max(1e-4, jax_reading), k
+        bound = jax_reading if 1e-4 < jax_reading <= 2e-4 else 1e-4
+        assert _rel_l2(got[k], want[k]) <= bound, (k, bound)
         assert jax_reading >= 1e-4 / 3, k
     # the second generator renders the edit: the loss differs without it
     plain, _ = tfd.make_loss_fn(gp, cfg, tb, tarc, tmtc, edit_fn=tedit)(
