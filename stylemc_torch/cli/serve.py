@@ -14,6 +14,8 @@ Endpoints:
                                   (needs --e4e_ckpt; 400 without)
   GET /directions               → JSON list of named directions
   GET /stats                    → JSON request counters + latency summary
+                                  (the last 1000 requests; with
+                                  --coalesce_ms > 0 also their queue wait)
 
 Usage:
   python -m stylemc_torch.cli.serve --network ffhq.npz \
@@ -26,7 +28,9 @@ Usage:
 
 from __future__ import annotations
 
+import collections
 import io
+import itertools
 import json
 import threading
 import time
@@ -36,6 +40,7 @@ from urllib.parse import parse_qs, urlparse
 import click
 import numpy as np
 
+from ..utils.profiling import record_function
 
 MAX_BODY_BYTES = 32 * 1024 * 1024
 
@@ -63,17 +68,22 @@ class EditService:
             from ..serve import CoalescingDispatcher
             self._dispatcher = CoalescingDispatcher(
                 max_batch=max_batch, max_wait_ms=coalesce_ms)
-        self._latencies = []
+        self._latencies: "collections.deque[float]" = collections.deque(
+            maxlen=1000)
+        self._ids = itertools.count()
         self.requests = 0
         self.errors = 0
 
     def _timed(self, fn) -> np.ndarray:
+        """fn(request id) as one `serve.request` span, timed."""
         t0 = time.perf_counter()
-        if self._dispatcher is None:
-            with self._lock:  # single device owner
-                out = fn()
-        else:
-            out = fn()  # the dispatcher's worker owns the device
+        request = next(self._ids)
+        with record_function("serve.request", request=request):
+            if self._dispatcher is None:
+                with self._lock:  # single device owner
+                    out = fn(request)
+            else:
+                out = fn(request)  # the dispatcher's worker owns the device
         with self._lock:
             self._latencies.append(time.perf_counter() - t0)
             self.requests += 1
@@ -82,26 +92,26 @@ class EditService:
     def edit(self, seeds, power: float, pairs: bool,
              direction_name=None) -> np.ndarray:
         if self._dispatcher is not None:
-            return self._timed(lambda: self._dispatcher.submit(
+            return self._timed(lambda request: self._dispatcher.submit(
                 ("seeds", power, pairs, direction_name),
                 np.asarray(seeds, np.int64),
                 lambda arr: self.editor.edit_seeds(
                     [int(s) for s in arr], change_power=power, pairs=pairs,
-                    direction_name=direction_name)))
-        return self._timed(lambda: self.editor.edit_seeds(
+                    direction_name=direction_name), request=request))
+        return self._timed(lambda request: self.editor.edit_seeds(
             seeds, change_power=power, pairs=pairs,
             direction_name=direction_name))
 
     def edit_images(self, imgs_u8: np.ndarray, power: float, pairs: bool,
                     direction_name=None) -> np.ndarray:
         if self._dispatcher is not None:
-            return self._timed(lambda: self._dispatcher.submit(
+            return self._timed(lambda request: self._dispatcher.submit(
                 ("image", power, pairs, direction_name),
                 np.asarray(imgs_u8),
                 lambda batch: self.editor.edit_images(
                     batch, change_power=power, pairs=pairs,
-                    direction_name=direction_name)))
-        return self._timed(lambda: self.editor.edit_images(
+                    direction_name=direction_name), request=request))
+        return self._timed(lambda request: self.editor.edit_images(
             imgs_u8, change_power=power, pairs=pairs,
             direction_name=direction_name))
 
@@ -111,11 +121,18 @@ class EditService:
 
     def stats(self):
         with self._lock:
-            lat = np.asarray(self._latencies[-1000:]) * 1e3
+            lat = np.asarray(self._latencies) * 1e3
             out = {"requests": self.requests, "errors": self.errors}
         if self._dispatcher is not None:
             out.update(batched_calls=self._dispatcher.batched_calls,
                        coalesced_items=self._dispatcher.coalesced_items)
+            wait = self._dispatcher.wait_ms()
+            if wait.size:
+                out.update(
+                    queue_wait_p50_ms=round(float(np.percentile(wait, 50)),
+                                            2),
+                    queue_wait_p99_ms=round(float(np.percentile(wait, 99)),
+                                            2))
         if lat.size:
             out.update(p50_ms=round(float(np.percentile(lat, 50)), 2),
                        p99_ms=round(float(np.percentile(lat, 99)), 2))

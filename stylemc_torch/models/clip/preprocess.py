@@ -14,6 +14,7 @@ import functools
 import numpy as np
 import torch
 
+from ...utils.profiling import to_device
 from .model import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
 
 
@@ -48,8 +49,7 @@ def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     h, w = x.shape[-2], x.shape[-1]
 
     def mat(n_in, n_out):
-        return torch.from_numpy(_resize_matrix(n_in, n_out)).to(
-            device=x.device, dtype=x.dtype)
+        return to_device(_resize_matrix(n_in, n_out), x.device, x.dtype)
 
     x = torch.matmul(mat(h, out_h), x)
     return torch.matmul(x, mat(w, out_w).T)
@@ -74,9 +74,10 @@ def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
 
 def clip_mean_std(like: torch.Tensor):
     """CLIP's mean and std as [3, 1, 1] tensors of `like`'s dtype/device."""
-    kw = dict(dtype=like.dtype, device=like.device)
-    return (torch.tensor(CLIP_IMAGE_MEAN, **kw).reshape(3, 1, 1),
-            torch.tensor(CLIP_IMAGE_STD, **kw).reshape(3, 1, 1))
+    return (to_device(CLIP_IMAGE_MEAN, like.device, like.dtype).reshape(
+                3, 1, 1),
+            to_device(CLIP_IMAGE_STD, like.device, like.dtype).reshape(
+                3, 1, 1))
 
 
 def unprocess(img: torch.Tensor, img_size: int = 224) -> torch.Tensor:

@@ -34,6 +34,7 @@ import torch.utils.checkpoint
 from ...device import DeviceLike, resolve_device
 from ...ops import bias_act, modulated_conv2d, setup_filter_np
 from ...ops.kernels.upfirdn2d import upsample2d_kernel
+from ...utils.profiling import profiled_function
 
 # Packed S-space layout: 26 rows of width 512 — 2 rows for b4 (conv1, torgb)
 # + 3 rows (conv0, conv1, torgb) per upper block, sized for a 1024 px
@@ -184,6 +185,7 @@ def normalize_2nd_moment(x, eps=1e-8):
     return x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
 
 
+@profiled_function(name="generator.mapping")
 def mapping(params, cfg: GeneratorConfig, z, c=None,
             truncation_psi: float = 1.0,
             truncation_cutoff: Optional[int] = None):
@@ -282,6 +284,7 @@ def _torgb_layer(lp, x, style, conv_clamp=256.0):
     return y.float()
 
 
+@profiled_function(name="generator.synthesis")
 def synthesis(params, cfg: GeneratorConfig, styles,
               until_k: Optional[int] = None, noise_mode: str = "const",
               noise_generator: Optional[torch.Generator] = None,

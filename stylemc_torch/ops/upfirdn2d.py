@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import to_device
+
 _IntOrPair = Union[int, Sequence[int]]
 
 
@@ -47,8 +49,8 @@ def _get_filter_size(f) -> tuple:
 
 def filter_like(f, x: torch.Tensor) -> torch.Tensor:
     """A filter (numpy array or tensor) as a float32 tensor on x's device."""
-    return torch.as_tensor(np.asarray(f) if not isinstance(f, torch.Tensor)
-                           else f, dtype=torch.float32, device=x.device)
+    return to_device(np.asarray(f) if not isinstance(f, torch.Tensor) else f,
+                     x.device, torch.float32)
 
 
 def setup_filter_np(f, normalize=True, flip_filter=False, gain=1,

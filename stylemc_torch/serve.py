@@ -31,6 +31,7 @@ Real photos (an e4e inverter attached):
 from __future__ import annotations
 
 import bisect
+import collections
 import dataclasses
 import queue
 import threading
@@ -47,6 +48,7 @@ from .edit import (N_STYLE_CHANNELS, STYLE_DIM, mapper_directions_batched,
 from .models.stylegan2.generator import (GeneratorConfig, inference_cfg,
                                          mapping, synthesis, w_to_s)
 from .parallel.mesh import as_mesh, replicate, shard_batch
+from .utils.profiling import add_span, current_span, record_function
 
 
 def _apply_precision(cfg: GeneratorConfig, precision: str) -> GeneratorConfig:
@@ -247,15 +249,17 @@ class BatchEditor:
     def styles_from_seeds(self, seeds: Sequence[int]) -> torch.Tensor:
         """Seeds → styles [N, 26, 512] on the device; z for seed s is
         np.random.RandomState(s).randn(1, z_dim)."""
-        zs = np.concatenate([np.random.RandomState(s).randn(1, self.cfg.z_dim)
-                             for s in seeds]).astype(np.float32)
-        out = []
-        for lo in range(0, len(seeds), self.buckets[-1]):
-            chunk = torch.from_numpy(zs[lo:lo + self.buckets[-1]]).to(
-                self.device)
-            z = self._pad(chunk, self._bucket(chunk.shape[0]))
-            out.append(self._styles_from_z(z)[:chunk.shape[0]])
-        return torch.cat(out, dim=0)
+        with record_function("editor.styles", rows=len(seeds)):
+            zs = np.concatenate(
+                [np.random.RandomState(s).randn(1, self.cfg.z_dim)
+                 for s in seeds]).astype(np.float32)
+            out = []
+            for lo in range(0, len(seeds), self.buckets[-1]):
+                chunk = torch.from_numpy(zs[lo:lo + self.buckets[-1]]).to(
+                    self.device)
+                z = self._pad(chunk, self._bucket(chunk.shape[0]))
+                out.append(self._styles_from_z(z)[:chunk.shape[0]])
+            return torch.cat(out, dim=0)
 
     @torch.inference_mode()
     def edit_styles(self, styles, change_power: float = 2.0,
@@ -271,19 +275,22 @@ class BatchEditor:
         outs: List[np.ndarray] = []
 
         def fetch(n, host, ev):
-            if ev is not None:
-                ev.synchronize()
-            outs.append(host[:n].numpy())
+            with record_function("editor.fetch", rows=n):
+                if ev is not None:
+                    ev.synchronize()
+                outs.append(host[:n].numpy())
 
         for lo in range(0, styles.shape[0], step):
             chunk = styles[lo:lo + step]
             n = chunk.shape[0]
             padded = self._pad(chunk, self._bucket(n))
-            d = self._directions_for(padded, direction_name)
-            img = self._render_u8(padded + d * change_power)
-            if pairs:
-                img = torch.cat([self._render_u8(padded), img], dim=2)
-            pending.append((n, *self._start_copy(img)))
+            with record_function("editor.render", rows=n,
+                                 bucket=padded.shape[0]):
+                d = self._directions_for(padded, direction_name)
+                img = self._render_u8(padded + d * change_power)
+                if pairs:
+                    img = torch.cat([self._render_u8(padded), img], dim=2)
+                pending.append((n, *self._start_copy(img)))
             if len(pending) >= max(1, self.max_inflight_chunks):
                 fetch(*pending.pop(0))
         for item in pending:
@@ -358,6 +365,10 @@ class CoalescingDispatcher:
 
     The worker is also the single device owner: all device work of the
     coalesced path is issued from its thread.
+
+    Each submission's wait, from `submit` to the start of the call that
+    carries it, is kept for the last 1000 submissions (`wait_ms()`), and
+    recorded as a `dispatch.wait` span while the recorder is on.
     """
 
     _STOP = object()
@@ -368,17 +379,24 @@ class CoalescingDispatcher:
         self._q: "queue.Queue" = queue.Queue()
         self.batched_calls = 0
         self.coalesced_items = 0
+        self._waits_ns: "collections.deque[int]" = collections.deque(
+            maxlen=1000)
+        self._waits_lock = threading.Lock()
         self._worker = threading.Thread(target=self._run, daemon=True,
                                         name="coalescing-dispatcher")
         self._worker.start()
 
-    def submit(self, key, rows: np.ndarray, fn) -> np.ndarray:
+    def submit(self, key, rows: np.ndarray, fn,
+               request: Optional[int] = None) -> np.ndarray:
         """Block until `fn` ran on a batch containing `rows`; returns this
         submission's slice of the result. `fn` must map a [N, ...] batch to
         [N, ...] results and be the same for every submission with the
-        same `key`."""
+        same `key`. `request` tags the submission's spans."""
         item = {"key": key, "rows": rows, "fn": fn,
-                "ev": threading.Event(), "out": None, "err": None}
+                "ev": threading.Event(), "out": None, "err": None,
+                "t": time.perf_counter_ns(), "request": request,
+                "thread": threading.get_native_id(),
+                "parent": current_span()}
         self._q.put(item)
         item["ev"].wait()
         if item["err"] is not None:
@@ -388,6 +406,12 @@ class CoalescingDispatcher:
     def close(self):
         self._q.put(self._STOP)
         self._worker.join(timeout=5)
+
+    def wait_ms(self) -> np.ndarray:
+        """The queue waits (ms) of the last 1000 submissions a call
+        carried."""
+        with self._waits_lock:
+            return np.asarray(self._waits_ns, np.float64) / 1e6
 
     # ------------------------------------------------------------ internal
 
@@ -416,25 +440,42 @@ class CoalescingDispatcher:
             item = self._q.get()
             if item is self._STOP:
                 return
-            batch = self._drain(item)
+            with record_function("dispatch.drain"):
+                batch = self._drain(item)
             groups: Dict = {}
             for it in batch:
                 groups.setdefault(it["key"], []).append(it)
-            for items in groups.values():
-                try:
-                    rows = np.concatenate([it["rows"] for it in items],
-                                          axis=0)
-                    out = items[0]["fn"](rows)
-                    self.batched_calls += 1
-                    self.coalesced_items += len(items)
-                    lo = 0
-                    for it in items:
-                        n = it["rows"].shape[0]
-                        it["out"] = out[lo:lo + n]
-                        lo += n
-                except Exception as e:  # noqa: BLE001 — deliver to callers
-                    for it in items:
-                        it["err"] = e
-                finally:
-                    for it in items:
-                        it["ev"].set()
+            for index, items in enumerate(groups.values()):
+                self._call(index, items)
+
+    def _call(self, index: int, items: list) -> None:
+        """One editor call on the group's rows (`index`: the group's place
+        in its drain), each submitter woken with its slice or the error."""
+        start = time.perf_counter_ns()
+        call = None
+        try:
+            with record_function(
+                    "dispatch.call",
+                    rows=sum(it["rows"].shape[0] for it in items),
+                    key=index, requests=tuple(it["request"] for it in items
+                                              if it["request"] is not None)
+            ) as call:
+                rows = np.concatenate([it["rows"] for it in items], axis=0)
+                out = items[0]["fn"](rows)
+            self.batched_calls += 1
+            self.coalesced_items += len(items)
+            lo = 0
+            for it in items:
+                n = it["rows"].shape[0]
+                it["out"] = out[lo:lo + n]
+                lo += n
+        except Exception as e:  # noqa: BLE001 — deliver to callers
+            for it in items:
+                it["err"] = e
+        finally:
+            with self._waits_lock:
+                self._waits_ns.extend(start - it["t"] for it in items)
+            for it in items:
+                add_span("dispatch.wait", it["t"], start, it["thread"],
+                         it["parent"], it["request"], call=call)
+                it["ev"].set()

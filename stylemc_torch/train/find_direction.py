@@ -63,6 +63,7 @@ from ..models.stylegan2.generator import (
     N_STYLE_CHANNELS, S_TRAINABLE_SPACE_CHANNELS, STYLE_DIM, GeneratorConfig,
     synthesis)
 from ..parallel.mesh import DataMesh, as_mesh, data_parallel, tree_to
+from ..utils.profiling import profiled_function, record_function, to_device
 
 TRAINABLE = list(S_TRAINABLE_SPACE_CHANNELS)
 
@@ -251,7 +252,7 @@ def _clip_term(bundle: CLIPBundle, clip_loss_type: str, f_tgt, orig_f,
 def assemble_direction(delta_s: torch.Tensor) -> torch.Tensor:
     """[..., 8, 512] trainable rows → full [..., 26, 512] direction
     (differentiable in delta_s)."""
-    rows = torch.tensor(TRAINABLE, device=delta_s.device)
+    rows = to_device(TRAINABLE, delta_s.device)
     direction = delta_s.new_zeros(delta_s.shape[:-2]
                                   + (N_STYLE_CHANNELS, STYLE_DIM))
     return direction.index_copy(delta_s.dim() - 2, rows, delta_s)
@@ -295,7 +296,6 @@ def make_loss_fn(gen_params, gen_cfg: GeneratorConfig,
     weights."""
     until_k = until_k_for_resolution(fdc.resolution)
     dtype = _perception_dtype(fdc)
-    rows = torch.tensor(TRAINABLE)
     e_params, e_cfg = edit_gen if edit_gen is not None else (gen_params,
                                                              gen_cfg)
 
@@ -325,7 +325,7 @@ def make_loss_fn(gen_params, gen_cfg: GeneratorConfig,
                 text_dirs[i] if text_dirs else None)
         clip_loss = clip_loss * fdc.clip_loss_coef
 
-        r = rows.to(styles.device)
+        r = to_device(TRAINABLE, styles.device)
         l2 = fdc.l2_reg_coef * torch.mean(torch.square(
             styles2.index_select(-2, r) - styles.index_select(-2, r)),
             dim=(-3, -2, -1))
@@ -464,9 +464,11 @@ def _sgd_step(loss_fn, bank, delta_s, idx, lr, text_dirs=None):
     styles, id_all, clip_all, refs = bank
     refs = None if refs is None else tuple(t[idx] for t in refs)
     delta_s = delta_s.detach().requires_grad_(True)
-    loss, aux = loss_fn(delta_s, styles[idx], id_all[idx],
-                        tuple(c[idx] for c in clip_all), refs, text_dirs)
-    grads, = torch.autograd.grad(loss.sum(), delta_s)
+    with record_function("train.forward"):
+        loss, aux = loss_fn(delta_s, styles[idx], id_all[idx],
+                            tuple(c[idx] for c in clip_all), refs, text_dirs)
+    with record_function("train.backward"):
+        grads, = torch.autograd.grad(loss.sum(), delta_s)
     with torch.no_grad():
         delta_s = delta_s.detach() + float(np.float32(-lr)) * grads
         grad_norm = torch.linalg.vector_norm(
@@ -489,12 +491,14 @@ def _dp_step(loss_fns, bank, mesh: DataMesh, delta_s, idx, lr,
     def shard(dev, rows):
         i = idx[rows]
         dl = delta_s.detach().to(dev).requires_grad_(True)
-        loss, aux = loss_fns[dev](
-            dl, styles[i].to(dev), id_all[i].to(dev),
-            tuple(c[i].to(dev) for c in clip_all),
-            None if refs is None else tuple(t[i].to(dev) for t in refs),
-            tree_to(text_dirs, dev))
-        g, = torch.autograd.grad(loss.sum(), dl)
+        with record_function("train.forward"):
+            loss, aux = loss_fns[dev](
+                dl, styles[i].to(dev), id_all[i].to(dev),
+                tuple(c[i].to(dev) for c in clip_all),
+                None if refs is None else tuple(t[i].to(dev) for t in refs),
+                tree_to(text_dirs, dev))
+        with record_function("train.backward"):
+            g, = torch.autograd.grad(loss.sum(), dl)
         keys[:] = list(aux)
         return [loss.detach(), g] + [torch.as_tensor(aux[k]).detach()
                                      for k in keys]
@@ -510,41 +514,47 @@ def _dp_step(loss_fns, bank, mesh: DataMesh, delta_s, idx, lr,
 
 def _sgd_loop(delta_s, step, n_items: int, fdc: FindDirectionConfig,
               after_step: Optional[Callable] = None,
-              device: Optional[torch.device] = None):
+              device: Optional[torch.device] = None, prompts: int = 1):
     """fdc.n_epochs epochs of ceil(n_items / batch) steps, each on a batch
     of one `RandomState(fdc.seed)` draw at the scheduled learning rate.
     after_step(it, total, lr, idx, Δs, loss, aux, grad_norm) runs after
     each step. delta_s is the trained state, a tensor or (the mapper
-    trainer's) a module on `device`. → (Δs, loss history [steps, ...]
-    numpy, info)."""
+    trainer's) a module on `device`; `prompts` is the step's prompt count
+    (its spans' attribute). → (Δs, loss history [steps, ...] numpy,
+    info)."""
     dev = device if device is not None else delta_s.device
     num_batches = math.ceil(n_items / fdc.batch_size)
     total = num_batches * fdc.n_epochs
     rng = np.random.RandomState(fdc.seed)
-    t0 = time.time()
+    t0 = time.perf_counter()
     first_step_done = None
     history = []
     it = 0
     for _ in range(fdc.n_epochs):
         for _ in range(num_batches):
             it += 1
-            lr = schedule_lr(fdc, it, total)
-            idx = torch.as_tensor(
-                rng.randint(0, n_items, size=fdc.batch_size)).to(dev)
-            delta_s, loss, aux, grad_norm = step(delta_s, idx, lr)
+            with record_function("train.step", step=it, prompts=prompts):
+                lr = schedule_lr(fdc, it, total)
+                idx = to_device(
+                    rng.randint(0, n_items, size=fdc.batch_size), dev)
+                delta_s, loss, aux, grad_norm = step(delta_s, idx, lr)
             if it == 1:
                 # one drain separates the first step (kernel builds, cuDNN
                 # and cuBLAS set-up) from the steady steps
-                loss.cpu()
-                first_step_done = time.time()
+                with record_function("train.sync"):
+                    loss.cpu()
+                first_step_done = time.perf_counter()
             if after_step is not None:
-                after_step(it, total, lr, idx, delta_s, loss, aux, grad_norm)
+                with record_function("train.callback", step=it):
+                    after_step(it, total, lr, idx, delta_s, loss, aux,
+                               grad_norm)
             history.append(loss)  # kept on the device: no sync per step
-    hist = torch.stack(history).cpu().numpy() if history else \
-        np.zeros((0,), np.float32)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    elapsed = time.time() - t0
+    with record_function("train.sync"):
+        hist = torch.stack(history).cpu().numpy() if history else \
+            np.zeros((0,), np.float32)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
     info = {"time": elapsed, "iterations": it}
     if first_step_done is not None and it > 1:
         info["first_step_time"] = first_step_done - t0
@@ -553,6 +563,7 @@ def _sgd_loop(delta_s, step, n_items: int, fdc: FindDirectionConfig,
     return delta_s, hist, info
 
 
+@profiled_function(name="train.job")
 def find_direction(gen_params, gen_cfg: GeneratorConfig, styles_array,
                    clip_models: Dict[str, Tuple], arcface_params,
                    fdc: FindDirectionConfig,
@@ -578,6 +589,39 @@ def find_direction(gen_params, gen_cfg: GeneratorConfig, styles_array,
     `landmarker` (cv.landmarks.Landmarker). Without `resume_direction`, Δs
     starts at `_initial_delta`'s draw.
     """
+    with record_function("train.prologue"):
+        dev, styles_array, step = _prologue(
+            gen_params, gen_cfg, styles_array, clip_models, arcface_params,
+            fdc, tokenizer, mesh, landmarker)
+
+    def after_step(it, total, lr, idx, delta_s, loss, aux, grad_norm):
+        if callback is None or (it % 10 != 0 and it != total):
+            return
+        direction = assemble_direction(delta_s)
+        with record_function("train.sync"):
+            aux_out = {k: float(v) for k, v in aux.items()}
+            loss_f, norm_f = float(loss), float(grad_norm)
+            direction_np = direction.cpu().numpy()
+        if landmarks_metric_fn is not None and fdc.landmarks_loss_coef != 0:
+            aux_out["landmarks_loss"] = fdc.landmarks_loss_coef * float(
+                landmarks_metric_fn(direction, styles_array[idx]))
+        else:
+            aux_out.setdefault("landmarks_loss", 0.0)
+        callback(it, loss_f, aux_out, lr, norm_f, direction_np)
+
+    delta_s, hist, info = _sgd_loop(_initial_delta(fdc, dev,
+                                                   resume_direction),
+                                    step, styles_array.shape[0], fdc,
+                                    after_step)
+    info["history"] = [float(x) for x in hist]
+    return assemble_direction(delta_s), info
+
+
+def _prologue(gen_params, gen_cfg, styles_array, clip_models, arcface_params,
+              fdc, tokenizer, mesh, landmarker):
+    """`find_direction`'s work before its first step: the models frozen,
+    the styles on the device, the original images' features (and landmarks
+    refs), the step. → (device, styles on it, step(Δs, idx, lr))."""
     dev = gen_params["mapping"]["w_avg"].device
     if fdc.landmarks_in_graph:
         if fdc.split_step:
@@ -591,7 +635,6 @@ def find_direction(gen_params, gen_cfg: GeneratorConfig, styles_array,
                  [p for _, p in clip_models.values()]):
         _freeze(tree)
     styles_array = _styles_on(styles_array, dev)
-    n_items = styles_array.shape[0]
     bundles = make_clip_bundles(fdc, clip_models, tokenizer)
 
     id_feats_orig_all, clip_feats_orig_all = precompute_original_features(
@@ -618,25 +661,7 @@ def find_direction(gen_params, gen_cfg: GeneratorConfig, styles_array,
         step = functools.partial(
             _dp_step, {d: loss_fn if d == dev else build(d)
                        for d in mesh.distinct}, bank, mesh)
-
-    def after_step(it, total, lr, idx, delta_s, loss, aux, grad_norm):
-        if callback is None or (it % 10 != 0 and it != total):
-            return
-        direction = assemble_direction(delta_s)
-        aux_out = {k: float(v) for k, v in aux.items()}
-        if landmarks_metric_fn is not None and fdc.landmarks_loss_coef != 0:
-            aux_out["landmarks_loss"] = fdc.landmarks_loss_coef * float(
-                landmarks_metric_fn(direction, styles_array[idx]))
-        else:
-            aux_out.setdefault("landmarks_loss", 0.0)
-        callback(it, float(loss), aux_out, lr, float(grad_norm),
-                 direction.cpu().numpy())
-
-    delta_s, hist, info = _sgd_loop(_initial_delta(fdc, dev,
-                                                   resume_direction),
-                                    step, n_items, fdc, after_step)
-    info["history"] = [float(x) for x in hist]
-    return assemble_direction(delta_s), info
+    return dev, styles_array, step
 
 
 class DirectionEngine:
@@ -757,9 +782,11 @@ class DirectionEngine:
 
         def after_step(it, total, lr, idx, delta_s, loss, aux, grad_norm):
             if callback is not None and it % 10 == 0:
-                callback(it, float(loss),
-                         {k: float(v) for k, v in aux.items()}, lr,
-                         assemble_direction(delta_s).cpu().numpy())
+                with record_function("train.sync"):
+                    host = (float(loss),
+                            {k: float(v) for k, v in aux.items()},
+                            assemble_direction(delta_s).cpu().numpy())
+                callback(it, host[0], host[1], lr, host[2])
 
         delta_s, hist, info = _sgd_loop(
             _initial_delta(fdc, self.device, resume_direction),
@@ -768,6 +795,7 @@ class DirectionEngine:
         info["history"] = [float(x) for x in hist]
         return assemble_direction(delta_s), info
 
+    @profiled_function(name="train.job")
     def optimize_batch(self, text_prompts: List[str],
                        negative_text_prompts: Optional[List[str]] = None,
                        mesh=None,
@@ -806,34 +834,39 @@ class DirectionEngine:
         if len(negative_text_prompts) != P:
             raise ValueError(f"{len(negative_text_prompts)} negative prompts "
                              f"for {P} prompts")
-        per_prompt = [self._text_dirs(t, n)
-                      for t, n in zip(text_prompts, negative_text_prompts)]
-        text_dirs = tuple(
-            {k: torch.stack([p[i][k] for p in per_prompt]) for k in anchors}
-            for i, anchors in enumerate(per_prompt[0]))
+        with record_function("train.prologue"):
+            per_prompt = [self._text_dirs(t, n) for t, n in
+                          zip(text_prompts, negative_text_prompts)]
+            text_dirs = tuple(
+                {k: torch.stack([p[i][k] for p in per_prompt])
+                 for k in anchors}
+                for i, anchors in enumerate(per_prompt[0]))
 
-        fresh = _initial_delta(fdc, self.device)
-        if resume_directions is not None:
-            if len(resume_directions) != P:
-                raise ValueError(f"{len(resume_directions)} resume "
-                                 f"directions for {P} prompts")
-            deltas = torch.stack([
-                fresh if d is None else _initial_delta(fdc, self.device, d)
-                for d in resume_directions])
-        else:
-            deltas = fresh.expand(P, *fresh.shape).clone()
+            fresh = _initial_delta(fdc, self.device)
+            if resume_directions is not None:
+                if len(resume_directions) != P:
+                    raise ValueError(f"{len(resume_directions)} resume "
+                                     f"directions for {P} prompts")
+                deltas = torch.stack([
+                    fresh if d is None else
+                    _initial_delta(fdc, self.device, d)
+                    for d in resume_directions])
+            else:
+                deltas = fresh.expand(P, *fresh.shape).clone()
 
         def after_step(it, total, lr, idx, deltas, losses, aux, grad_norm):
             if callback is not None and it % 10 == 0:
-                callback(it, [float(x) for x in losses.cpu()],
-                         {k: v.cpu().numpy() for k, v in aux.items()}, lr,
-                         assemble_direction(deltas).cpu().numpy())
+                with record_function("train.sync"):
+                    host = ([float(x) for x in losses.cpu()],
+                            {k: v.cpu().numpy() for k, v in aux.items()},
+                            assemble_direction(deltas).cpu().numpy())
+                callback(it, host[0], host[1], lr, host[2])
 
         step = functools.partial(self._step, text_dirs=text_dirs) \
             if mesh is None else \
             functools.partial(self._mesh_step, mesh, text_dirs)
         deltas, hist, info = _sgd_loop(deltas, step, self.n_items, fdc,
-                                       after_step)
+                                       after_step, prompts=P)
         info["history"] = hist.T if len(hist) else np.zeros((P, 0),
                                                             np.float32)
         info["prompts"] = list(text_prompts)

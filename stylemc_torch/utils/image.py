@@ -9,6 +9,8 @@ import functools
 import numpy as np
 import torch
 
+from .profiling import to_device
+
 
 @functools.lru_cache(maxsize=64)
 def adaptive_avg_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -23,8 +25,8 @@ def adaptive_avg_pool_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 def _matrix(in_size: int, out_size: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(adaptive_avg_pool_matrix(in_size, out_size)).to(
-        device=like.device, dtype=like.dtype)
+    return to_device(adaptive_avg_pool_matrix(in_size, out_size),
+                     like.device, like.dtype)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, out_h: int, out_w: int

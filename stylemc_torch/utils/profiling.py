@@ -6,14 +6,37 @@
 trace (chrome://tracing, Perfetto); `count_params` and
 `print_params_summary` count the parameters of a params tree (nested dicts
 of tensors or arrays) or of an `nn.Module`.
+
+The same spans also go to an in-memory recorder while one is on:
+
+    start_recording()
+    ...                      # every record_function / profiled_function
+    spans = drain_spans()    # the spans closed since, in closing order
+    dropped = stop_recording()
+
+Each `Span` holds its name, start and end (`time.perf_counter_ns()`), the
+OS thread id, its own id and its parent's (the enclosing span on the same
+thread), a request id where the caller gives one, and a few attributes.
+The buffer holds at most `MAX_SPANS`; later spans are counted as dropped.
+With the recorder off a span costs one flag check beside the profiler
+range: no clock read, nothing kept.
+
+`to_device` copies host data (filters, resampling matrices, indices) to a
+device inside a `copy.h2d` span: from pageable memory the copy starts only
+once the device's queue has drained, so on a CUDA device the span times a
+host wait on the device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import os
-from typing import Callable, Iterator, List
+import threading
+import time
+from typing import (Any, Callable, Dict, Iterable, Iterator, List,
+                    NamedTuple, Optional)
 
 import numpy as np
 import torch
@@ -21,22 +44,155 @@ import torch
 from ..device import DeviceLike
 
 
-def profiled_function(fn: Callable) -> Callable:
-    """Run `fn` inside a profiler span named after it."""
+class Span(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    id: int
+    parent: Optional[int]
+    request: Optional[int]
+    attrs: Dict[str, Any]
+
+
+MAX_SPANS = 1_000_000
+
+
+class _Recorder:
+    def __init__(self):
+        self.spans: List[Span] = []
+        self.dropped = 0
+        self.lock = threading.Lock()
+
+    def add(self, span: Span) -> None:
+        with self.lock:
+            if len(self.spans) < MAX_SPANS:
+                self.spans.append(span)
+            else:
+                self.dropped += 1
+
+
+_recorder: Optional[_Recorder] = None
+_ids = itertools.count(1)
+_local = threading.local()
+
+
+def _stack() -> List[int]:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+def start_recording() -> None:
+    """Record every span from now on, in a new buffer."""
+    global _recorder
+    _recorder = _Recorder()
+
+
+def drain_spans() -> List[Span]:
+    """The spans recorded since the last drain (empty while off)."""
+    rec = _recorder
+    if rec is None:
+        return []
+    with rec.lock:
+        spans, rec.spans = rec.spans, []
+    return spans
+
+
+def stop_recording() -> int:
+    """Stop recording (undrained spans are dropped); → the spans the
+    bound turned away."""
+    global _recorder
+    rec, _recorder = _recorder, None
+    return 0 if rec is None else rec.dropped
+
+
+def current_span() -> Optional[int]:
+    """The innermost open span on this thread while recording, else None."""
+    if _recorder is None:
+        return None
+    stack = _stack()
+    return stack[-1] if stack else None
+
+
+def add_span(name: str, start_ns: int, end_ns: int, thread: int,
+             parent: Optional[int] = None, request: Optional[int] = None,
+             **attrs) -> None:
+    """Record a span timed elsewhere (one thread opens it, another closes
+    it), while recording."""
+    rec = _recorder
+    if rec is not None:
+        rec.add(Span(name, start_ns, end_ns, thread, next(_ids), parent,
+                     request, attrs))
+
+
+@contextlib.contextmanager
+def record_function(name: str, request: Optional[int] = None,
+                    **attrs) -> Iterator[Optional[int]]:
+    """A named profiler span; while recording, also a `Span` with
+    `request` and `attrs`. Yields the span's id (None while off)."""
+    rec = _recorder
+    if rec is None:
+        with torch.profiler.record_function(name):
+            yield None
+        return
+    stack = _stack()
+    sid = next(_ids)
+    parent = stack[-1] if stack else None
+    stack.append(sid)
+    start = time.perf_counter_ns()
+    try:
+        with torch.profiler.record_function(name):
+            yield sid
+    finally:
+        end = time.perf_counter_ns()
+        stack.pop()
+        rec.add(Span(name, start, end, threading.get_native_id(), sid,
+                     parent, request, attrs))
+
+
+def to_device(data, device: DeviceLike, dtype: Optional[torch.dtype] = None
+              ) -> torch.Tensor:
+    """`torch.as_tensor(data, dtype=dtype, device=device)` as a `copy.h2d`
+    span."""
+    with record_function("copy.h2d"):
+        return torch.as_tensor(data, dtype=dtype, device=device)
+
+
+def profiled_function(fn: Optional[Callable] = None, *,
+                      name: Optional[str] = None) -> Callable:
+    """Run `fn` inside a span named `name` (by default after `fn`); use as
+    `@profiled_function` or `@profiled_function(name=...)`."""
+    if fn is None:
+        return functools.partial(profiled_function, name=name)
+    label = name or fn.__name__
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        with torch.profiler.record_function(fn.__name__):
+        with record_function(label):
             return fn(*args, **kwargs)
 
     return wrapper
 
 
-@contextlib.contextmanager
-def record_function(name: str):
-    """A named profiler span."""
-    with torch.profiler.record_function(name):
-        yield
+def self_ns(spans: Iterable[Span]) -> Dict[int, int]:
+    """{span id: its duration less the part its children cover}."""
+    spans = list(spans)
+    children: Dict[int, List[Span]] = {}
+    for s in spans:
+        if s.parent is not None:
+            children.setdefault(s.parent, []).append(s)
+    out = {}
+    for s in spans:
+        covered, reach = 0, s.start_ns
+        for c in sorted(children.get(s.id, ()), key=lambda c: c.start_ns):
+            lo, hi = max(c.start_ns, reach), min(c.end_ns, s.end_ns)
+            if hi > lo:
+                covered += hi - lo
+                reach = hi
+        out[s.id] = s.end_ns - s.start_ns - covered
+    return out
 
 
 @contextlib.contextmanager

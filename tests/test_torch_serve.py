@@ -175,6 +175,12 @@ def test_http_server_endpoints(jax_params, coalesce_ms):
             (32, 32, 3)
         stats = json.loads(urllib.request.urlopen(f"{base}/stats").read())
         assert stats["requests"] == 2 and "p50_ms" in stats
+        # the queue wait is the dispatcher's share of each request's time
+        assert ("queue_wait_p50_ms" in stats) == (coalesce_ms > 0)
+        if coalesce_ms > 0:
+            assert 0 <= stats["queue_wait_p50_ms"] <= \
+                stats["queue_wait_p99_ms"] <= stats["p99_ms"]
+            assert stats["batched_calls"] == 2
         for bad in ("seeds=notanumber", "seeds=1&direction=nope"):
             with pytest.raises(urllib.error.HTTPError) as e:
                 urllib.request.urlopen(f"{base}/edit?{bad}")
