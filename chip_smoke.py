@@ -415,13 +415,13 @@ def downsample_bound(shape):
 
 
 def synthesis_flop(cfg, useful: bool = False) -> int:
-    """Flops (2 per multiply-add) of one image's synthesis call. conv1 is
-    3x3, torgb 1x1. Each conv0 is the 3x3 kernel composed with the 4x4 FIR
-    (6x6): as the port runs it (pad_dilate) over the zero-stuffed input at
-    full resolution, 36 taps per output pixel; with `useful`, only the
-    taps that meet a non-zero input, 9 per output pixel (the polyphase
-    form's count)."""
-    conv0_taps = 9 if useful else 36
+    """Flops (2 per multiply-add) of one image's synthesis call, in the
+    up-conv form `cfg` runs. conv1 is 3x3, torgb 1x1. Each conv0 is the 3x3
+    kernel composed with the 4x4 FIR (6x6): pad_dilate runs it over the
+    zero-stuffed input at full resolution, 36 taps per output pixel;
+    polyphase (the default), and any form with `useful`, only the taps
+    that meet a non-zero input, 9 per output pixel."""
+    conv0_taps = 36 if cfg.up_conv_impl == "pad_dilate" and not useful else 9
     total = 0
     for res in cfg.block_resolutions:
         c_out = cfg.channels(res)
@@ -1349,7 +1349,7 @@ def phase_serve(torch, net, direction, smi, paths):
         r["useful_tflop_per_s"] = r["median_images_per_s"] * useful / 1e12
     emit({"phase": "serve_throughput", "precision": "fp32",
           "card": smi, "pipeline_chunk": editor.pipeline_chunk,
-          "up_conv_impl": editor.cfg.up_conv_impl,
+          "up_conv_impl": editor.cfg.up_conv_impl or "polyphase",
           "synthesis_flop_per_image": flop,
           "useful_flop_per_image": useful, "launches": launches,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(), **rates})
@@ -1921,7 +1921,7 @@ def phase_e4e_serve(torch, ckpt, decoder, photos, direction, cli_styles,
     record_launches(paths, editor.cfg, "e4e_edit_images", edit_launches, 8)
     emit({"phase": "e4e_throughput", "card": smi, "precision": "fp32",
           "max_batch": E4E_MAX_BATCH,
-          "up_conv_impl": editor.cfg.up_conv_impl,
+          "up_conv_impl": editor.cfg.up_conv_impl or "polyphase",
           "synthesis_flop_per_image": synthesis_flop(editor.cfg),
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
           "launches": {"invert": inv_launches, "edit": edit_launches},
@@ -3491,7 +3491,6 @@ def phase_mapper_clis(torch, cfg, net, net2, styles, ckpt, seg, tmp, smi,
         mapper_direction
     from stylemc_torch.io import load_generator
     from stylemc_torch.models.mapper import load_mapper
-    from stylemc_torch.models.stylegan2.generator import inference_cfg
 
     s_file = os.path.join(tmp, "mapper_input.npz")
     np.savez(s_file, s=styles[1:1 + MAPPER_CLI_SEEDS].cpu().numpy())
@@ -3555,20 +3554,19 @@ def phase_mapper_clis(torch, cfg, net, net2, styles, ckpt, seg, tmp, smi,
     # one item blended on both sides from the card's masks
     _, gp = load_generator(net, device="cuda")
     _, gp_cpu = load_generator(net, device="cpu")
-    icfg = inference_cfg(cfg)
     item = styles[1]
     d = mapper_direction(mapper, item)
     rec = _RecordingSegmenter(seg)
     card, launches = count_launches(lambda: apply_edit_item_with_blending(
-        gp, icfg, item, d, 2.0, rec, text_prompt=MAPPER_PROMPT))
+        gp, cfg, item, d, 2.0, rec, text_prompt=MAPPER_PROMPT))
     record_launches(paths, cfg, "mapper_blend_parity", launches, 3)
     with tf32_control(torch):
         card_t = apply_edit_item_with_blending(
-            gp, icfg, item, d, 2.0, _ReplayingSegmenter(rec.masks),
+            gp, cfg, item, d, 2.0, _ReplayingSegmenter(rec.masks),
             text_prompt=MAPPER_PROMPT)
     t0 = time.perf_counter()
     cpu, cpu_launches = count_launches(lambda: apply_edit_item_with_blending(
-        gp_cpu, icfg, item.cpu(), d.cpu(), 2.0,
+        gp_cpu, cfg, item.cpu(), d.cpu(), 2.0,
         _ReplayingSegmenter(rec.masks), text_prompt=MAPPER_PROMPT))
     cpu_s = time.perf_counter() - t0
 
@@ -3823,11 +3821,10 @@ def phase_metrics(torch, net, tmp, smi, paths):
         _gen_images, compute_generator_features)
     from stylemc_torch.metrics.ppl import compute_ppl
     from stylemc_torch.models.stylegan2.generator import (
-        inference_cfg, mapping, synthesis, w_to_s)
+        mapping, synthesis, w_to_s)
 
     t0 = time.perf_counter()
     cfg, params = load_generator(net, device="cuda")
-    cfg = inference_cfg(cfg)
     data = os.path.join(tmp, "metrics_data")
     imgs, launches = count_launches(
         lambda: make_metrics_data(torch, cfg, params, data))
@@ -4848,11 +4845,10 @@ def phase_dp_metrics(torch, net, smi, paths):
     from stylemc_torch.metrics import FeatureStats, MetricOptions, calc_metric
     from stylemc_torch.metrics.inception import inception_features
     from stylemc_torch.models.stylegan2.generator import (
-        inference_cfg, mapping, synthesis, w_to_s)
+        mapping, synthesis, w_to_s)
 
     t0 = time.perf_counter()
     cfg, params = load_generator(net, device="cuda")
-    cfg = inference_cfg(cfg)
     inc, lp = metric_detectors(torch, "cuda")
     gen = torch.Generator().manual_seed(METRICS_DATA_SEED)
     with torch.no_grad():
@@ -5221,7 +5217,7 @@ def phase_tf_legacy(torch, tmp, smi, paths):
     from stylemc_torch.models.stylegan2.discriminator import (
         discriminator_apply, init_discriminator_params)
     from stylemc_torch.models.stylegan2.generator import (
-        GeneratorConfig, inference_cfg, init_generator_params, synthesis)
+        GeneratorConfig, init_generator_params, synthesis)
 
     t0 = time.perf_counter()
     cfg = GeneratorConfig(**TF_CFG_KW)
@@ -5243,13 +5239,12 @@ def phase_tf_legacy(torch, tmp, smi, paths):
     load_s = time.perf_counter() - t0
     gp = params_to_numpy(params)
     params_equal = _same(gp, params_to_numpy(g))
-    icfg = inference_cfg(tcfg)
     cpu_params = params_from_numpy(gp, "cpu")
-    s8 = seed_styles(torch, params, icfg, TF_RENDER_SEEDS, "cuda")
+    s8 = seed_styles(torch, params, tcfg, TF_RENDER_SEEDS, "cuda")
 
     def render():
         with torch.inference_mode():
-            return synthesis(params, icfg, s8, noise_mode="const")
+            return synthesis(params, tcfg, s8, noise_mode="const")
 
     img, launches = count_launches(render)
     record_launches(paths, tcfg, "tf_legacy_render", launches, 1)
@@ -5265,12 +5260,12 @@ def phase_tf_legacy(torch, tmp, smi, paths):
     # card against CPU on the first seeds, each side rendering them alone
     seeds = TF_RENDER_SEEDS[:TF_PARITY_ITEMS]
     with torch.inference_mode():
-        s2 = seed_styles(torch, params, icfg, seeds, "cuda")
-        card_u8 = to_u8_nhwc(synthesis(params, icfg, s2)).cpu().numpy()
+        s2 = seed_styles(torch, params, tcfg, seeds, "cuda")
+        card_u8 = to_u8_nhwc(synthesis(params, tcfg, s2)).cpu().numpy()
         with tf32_control(torch):
-            tf32_u8 = to_u8_nhwc(synthesis(params, icfg, s2)).cpu().numpy()
-        cpu_u8 = to_u8_nhwc(synthesis(cpu_params, icfg, seed_styles(
-            torch, cpu_params, icfg, seeds, "cpu"))).numpy()
+            tf32_u8 = to_u8_nhwc(synthesis(params, tcfg, s2)).cpu().numpy()
+        cpu_u8 = to_u8_nhwc(synthesis(cpu_params, tcfg, seed_styles(
+            torch, cpu_params, tcfg, seeds, "cpu"))).numpy()
     card_max, card_share = _u8_parity(card_u8, cpu_u8)
     tf32_max, tf32_share = _u8_parity(tf32_u8, cpu_u8)
     gates = {}
@@ -5412,7 +5407,6 @@ def _verify_cpu_refs(torch, net, files):
     from stylemc_torch.io import load_generator
     from stylemc_torch.models.clip.load import load_clip
     from stylemc_torch.models.clip.tokenizer import SimpleTokenizer
-    from stylemc_torch.models.stylegan2.generator import inference_cfg
     from stylemc_torch.train.find_direction import (FindDirectionConfig,
                                                     find_direction)
     from stylemc_torch.utils.misc import num_range
@@ -5436,8 +5430,7 @@ def _verify_cpu_refs(torch, net, files):
     cfg, params = load_generator(net, device="cpu")
     clips = {name: load_clip(name, files["clip_dir"], device="cpu")
              for name in ("ViT-B/32", "ViT-B/16")}
-    styles = seed_styles(torch, params, inference_cfg(cfg),
-                         num_range(VERIFY_SEEDS), "cpu")
+    styles = seed_styles(torch, params, cfg, num_range(VERIFY_SEEDS), "cpu")
     direction, info = find_direction(
         params, cfg, styles.numpy(), clips,
         load_arcface(files["arcface"], device="cpu"),
@@ -5602,17 +5595,15 @@ def phase_clis_misc(torch, net, verify_files, direction, tmp, smi, paths):
     from stylemc_torch.cli import clip_filter as clip_filter_cli
     from stylemc_torch.edit import to_u8_nhwc
     from stylemc_torch.io import load_generator
-    from stylemc_torch.models.stylegan2.generator import (inference_cfg,
-                                                          synthesis)
+    from stylemc_torch.models.stylegan2.generator import synthesis
 
     cfg, params = load_generator(net, device="cuda")
-    icfg = inference_cfg(cfg)
-    styles = seed_styles(torch, params, icfg, range(CLIP_FILTER_IMAGES),
+    styles = seed_styles(torch, params, cfg, range(CLIP_FILTER_IMAGES),
                          "cuda")
 
     def render():
         with torch.inference_mode():
-            return to_u8_nhwc(synthesis(params, icfg, styles)).cpu().numpy()
+            return to_u8_nhwc(synthesis(params, cfg, styles)).cpu().numpy()
 
     imgs, launches = count_launches(render)
     record_launches(paths, cfg, "clip_filter_renders", launches, 1)

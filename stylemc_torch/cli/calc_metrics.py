@@ -64,7 +64,6 @@ def main(network_pkl, metrics, data_dir, num_gen, batch, inception_path,
     from ..metrics import MetricOptions, calc_metric, is_valid_metric
     from ..metrics import inception as inc
     from ..metrics.feature_stats import FeatureStats
-    from ..models.stylegan2.generator import inference_cfg
     from ..parallel.mesh import cli_mesh
 
     dev = resolve_device(device)
@@ -76,7 +75,6 @@ def main(network_pkl, metrics, data_dir, num_gen, batch, inception_path,
                                      param_hint="--metrics")
 
     cfg, params = load_generator(network_pkl, device=dev)
-    cfg = inference_cfg(cfg)  # the feature loops are forward-only
 
     inception_path = inception_path or os.environ.get("STYLEMC_INCEPTION")
     if inception_path and os.path.exists(inception_path):

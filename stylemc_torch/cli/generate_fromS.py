@@ -61,16 +61,15 @@ def main(network_pkl, network2_pkl, noise_mode, projected_w, s_input,
                         mapper_direction, mapper_directions_batched,
                         to_uint8_hwc)
     from ..io import load_generator
-    from ..models.stylegan2.generator import inference_cfg, synthesis, w_to_s
+    from ..models.stylegan2.generator import synthesis, w_to_s
 
     print(f'Loading networks from "{network_pkl}"...')
     cfg, params = load_generator(network_pkl, device=device)
-    cfg = inference_cfg(cfg)  # render-only CLI
     gen2 = None
     if network2_pkl and network2_pkl != network_pkl:
         print(f'Loading networks from "{network2_pkl}"...')
         cfg2, params2 = load_generator(network2_pkl, device=device)
-        gen2 = (params2, inference_cfg(cfg2))
+        gen2 = (params2, cfg2)
     os.makedirs(outdir, exist_ok=True)
 
     if projected_w is not None:

@@ -15,7 +15,6 @@ and STYLEMC_MOBILENET, on --device); a photo without a face stops the run.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import time
 
@@ -45,13 +44,10 @@ def main(images_dir, checkpoint_path, save_dir, align, stylegan_size, batch,
     from ..device import disable_tf32, resolve_device
     from ..edit import to_uint8_hwc
     from ..models.e4e.psp import load_psp_from_checkpoint
-    from ..models.stylegan2.generator import inference_cfg
 
     dev = resolve_device(device)
     disable_tf32(dev)
     psp = load_psp_from_checkpoint(checkpoint_path, stylegan_size, device=dev)
-    # forward only: decode with the inference up-conv form
-    psp = dataclasses.replace(psp, decoder_cfg=inference_cfg(psp.decoder_cfg))
     paths = make_dataset(images_dir)
     print(f"inverting {len(paths)} images")
     os.makedirs(save_dir, exist_ok=True)

@@ -141,8 +141,7 @@ def main(network, tf_network, e4e_path, clip_dir, arcface_path,
     from ..convert import params_from_numpy
     from ..device import disable_tf32, resolve_device
     from ..edit import to_u8_nhwc
-    from ..models.stylegan2.generator import (inference_cfg, mapping,
-                                              synthesis, w_to_s)
+    from ..models.stylegan2.generator import mapping, synthesis, w_to_s
     from ..utils.misc import num_range
     from ..utils.profiling import count_params
 
@@ -157,10 +156,10 @@ def main(network, tf_network, e4e_path, clip_dir, arcface_path,
     state: Dict[str, Any] = {}
 
     @torch.inference_mode()
-    def render(params, icfg, z):
-        ws = mapping(params, icfg, z, truncation_psi=trunc)
-        styles = w_to_s(params, icfg, ws)
-        return styles, synthesis(params, icfg, styles, noise_mode="const")
+    def render(params, cfg, z):
+        ws = mapping(params, cfg, z, truncation_psi=trunc)
+        styles = w_to_s(params, cfg, ws)
+        return styles, synthesis(params, cfg, styles, noise_mode="const")
 
     # ---------------------------------------------------------- generator
     def _generator_sanity(path, install):
@@ -170,11 +169,10 @@ def main(network, tf_network, e4e_path, clip_dir, arcface_path,
         from ..io import load_generator
 
         cfg, params = load_generator(path, device=dev)
-        icfg = inference_cfg(cfg)
         zs = np.concatenate(
             [np.random.RandomState(s).randn(1, cfg.z_dim)
              for s in seed_list]).astype(np.float32)
-        styles, imgs = render(params, icfg, torch.from_numpy(zs).to(dev))
+        styles, imgs = render(params, cfg, torch.from_numpy(zs).to(dev))
         imgs_u8 = to_u8_nhwc(imgs).cpu().numpy()
         renders_pm1 = imgs.float().cpu().numpy()
         if install:
@@ -337,7 +335,6 @@ def main(network, tf_network, e4e_path, clip_dir, arcface_path,
             from ..metrics.scores import fid_from_stats
 
             cfg, params = state["cfg"], state["params"]
-            icfg = inference_cfg(cfg)
             stats = [FeatureStats(capture_mean_cov=True,
                                   max_items=fid_samples) for _ in range(2)]
             bs = 16
@@ -346,7 +343,7 @@ def main(network, tf_network, e4e_path, clip_dir, arcface_path,
                 done = 0
                 while done < fid_samples:
                     z = rs.randn(bs, cfg.z_dim).astype(np.float32)
-                    _, img = render(params, icfg, torch.from_numpy(z).to(dev))
+                    _, img = render(params, cfg, torch.from_numpy(z).to(dev))
                     with torch.inference_mode():
                         f = inception_features(state["inception"],
                                                to_u8_nhwc(img))

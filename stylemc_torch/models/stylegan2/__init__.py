@@ -4,7 +4,6 @@ from .generator import (
     RESOLUTION_UNTIL_K,
     STYLE_DIM,
     generate,
-    inference_cfg,
     init_generator_params,
     mapping,
     split_ws,

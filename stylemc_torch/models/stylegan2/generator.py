@@ -378,14 +378,6 @@ def synthesis(params, cfg: GeneratorConfig, styles,
     return img
 
 
-def inference_cfg(cfg: GeneratorConfig) -> GeneratorConfig:
-    """cfg for forward-only use: pad_dilate up-convs unless the caller set
-    an impl. Serving and the rendering CLIs call this."""
-    if cfg.up_conv_impl is None:
-        return dataclasses.replace(cfg, up_conv_impl="pad_dilate")
-    return cfg
-
-
 def generate(params, cfg: GeneratorConfig, z, truncation_psi: float = 1.0,
              noise_mode: str = "const",
              noise_generator: Optional[torch.Generator] = None):

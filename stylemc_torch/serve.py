@@ -45,8 +45,8 @@ from .convert import params_from_numpy
 from .device import DeviceLike, disable_tf32, resolve_device
 from .edit import (N_STYLE_CHANNELS, STYLE_DIM, mapper_directions_batched,
                    to_u8_nhwc)
-from .models.stylegan2.generator import (GeneratorConfig, inference_cfg,
-                                         mapping, synthesis, w_to_s)
+from .models.stylegan2.generator import (GeneratorConfig, mapping,
+                                         synthesis, w_to_s)
 from .parallel.mesh import as_mesh, replicate, shard_batch
 from .utils.profiling import add_span, current_span, record_function
 
@@ -84,8 +84,7 @@ class BatchEditor:
                  mesh=None, pipeline_chunk: int = 16,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
-        # forward-only service → pad_dilate up-convs
-        self.cfg = inference_cfg(_apply_precision(gen_cfg, precision))
+        self.cfg = _apply_precision(gen_cfg, precision)
         if precision == "fp32":
             disable_tf32(self.device)
         self.params = params_from_numpy(gen_params, self.device)

@@ -17,6 +17,7 @@ import torch
 from stylemc_tpu.models.stylegan2 import generator as jgen
 from stylemc_torch.convert import params_from_numpy, params_to_numpy
 from stylemc_torch.models.stylegan2 import generator as tgen
+from stylemc_torch.ops.conv2d_resample import DEFAULT_UP_CONV_IMPL
 from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 1e-4, 1e-5
@@ -78,9 +79,9 @@ def test_config_matches_jax(kw):
 def test_ffhq256_layout():
     cfg = tgen.GeneratorConfig(img_resolution=256)
     assert cfg.num_ws == 14 and cfg.num_style_rows == 20
-    assert tgen.inference_cfg(cfg).up_conv_impl == "pad_dilate"
-    keep = dataclasses.replace(cfg, up_conv_impl="polyphase")
-    assert tgen.inference_cfg(keep).up_conv_impl == "polyphase"
+    # no form set: every caller, forward-only rendering too, runs polyphase
+    assert cfg.up_conv_impl is None
+    assert DEFAULT_UP_CONV_IMPL == "polyphase"
 
 
 @pytest.mark.parametrize("psi,cutoff", [(1.0, None), (0.7, None), (0.5, 3)])

@@ -621,7 +621,7 @@ def test_calc_metrics_cli_matches_its_library_call(gens, tmp_path,
         return stats
 
     opts = tmetrics.MetricOptions(
-        gen_params=tgp, gen_cfg=tgen.inference_cfg(tcfg),
+        gen_params=tgp, gen_cfg=tcfg,
         inception_features_fn=features_fn,
         inception_probs_fn=lambda x: tinc.inception_features(
             inc, x, return_logits=True, variant="tv"),

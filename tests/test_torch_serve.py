@@ -4,6 +4,7 @@ Same JAX-initialised weights, same seeds and directions: uint8 renders agree
 within ±1 (fp32 summation order can move a value across a rounding edge).
 """
 
+import dataclasses
 import io
 import json
 import threading
@@ -19,7 +20,9 @@ from stylemc_tpu.models.stylegan2.generator import (
     GeneratorConfig as JaxConfig, init_generator_params)
 from stylemc_tpu.serve import BatchEditor as JaxEditor
 from stylemc_torch.models.stylegan2.generator import (GeneratorConfig,
-                                                      N_STYLE_CHANNELS)
+                                                      N_STYLE_CHANNELS,
+                                                      synthesis)
+from stylemc_torch.ops import conv2d_resample
 from stylemc_torch.serve import BatchEditor, CoalescingDispatcher
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -93,6 +96,22 @@ def test_zero_power_identity_and_bucketing(jax_params):
                                  for i in range(5)])
     _within_one(all_at_once, one_by_one)
     assert ed._bucket(3) == 4 and ed._bucket(9) == 4 and ed._bucket(1) == 1
+
+
+def test_editor_renders_through_polyphase_up_convs(jax_params):
+    ed = _editor(jax_params)
+    counts = conv2d_resample.up_convs
+    before = dict(counts)
+    ed.edit_seeds([1, 2, 3], change_power=2.0)   # one bucket-4 call
+    assert counts["pad_dilate"] == before["pad_dilate"]
+    assert counts["polyphase"] - before["polyphase"] == \
+        len(ed.cfg.block_resolutions) - 1         # one conv0 a block
+    styles = ed.styles_from_seeds([1, 2, 3]) + 2.0 * ed.direction
+    pad_cfg = dataclasses.replace(ed.cfg, up_conv_impl="pad_dilate")
+    with torch.inference_mode():
+        got = synthesis(ed.params, ed.cfg, styles)
+        want = synthesis(ed.params, pad_cfg, styles)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-5)
 
 
 def test_pipeline_chunks_match_one_shot(jax_params):

@@ -69,21 +69,19 @@ def test_direction_check_matches_jax(files):
     from stylemc_tpu.models.clip.tokenizer import SimpleTokenizer
     from stylemc_tpu.utils.model_zoo import load_arcface as jax_load_arcface
     from stylemc_torch.io import load_generator
-    from stylemc_torch.models.stylegan2.generator import (
-        inference_cfg, mapping, w_to_s)
+    from stylemc_torch.models.stylegan2.generator import mapping, w_to_s
     from stylemc_torch.train.find_direction import (FindDirectionConfig,
                                                     find_direction)
     from stylemc_torch.utils.model_zoo import load_arcface, load_clip_models
 
     jfd = importlib.import_module("stylemc_tpu.train.find_direction")
     cfg, params = load_generator(files["network"], device="cpu")
-    icfg = inference_cfg(cfg)
     zs = np.concatenate([np.random.RandomState(s).randn(1, cfg.z_dim)
                          for s in range(4)]).astype(np.float32)
     with torch.no_grad():
-        styles = w_to_s(params, icfg, mapping(params, icfg,
-                                              torch.from_numpy(zs),
-                                              truncation_psi=0.7)).numpy()
+        styles = w_to_s(params, cfg, mapping(params, cfg,
+                                             torch.from_numpy(zs),
+                                             truncation_psi=0.7)).numpy()
     bpe = files["env"]["STYLEMC_CLIP_BPE"]
     os.environ["STYLEMC_CLIP_BPE"] = bpe
     try:
