@@ -175,8 +175,12 @@ script exits non-zero:
   mapper_clis  on 8 seeds, as subprocesses: train_latent_mapper (one
           epoch, --network2 a second seeded FFHQ-1024 generator),
           generate_fromS --use_mapper 1 --use_whitelist 1, generate_fromS
-          --use_mapper 1 --use_blending 1, run_deeplab on the blended JPEGs;
-          one item blended on the card and on the CPU, both fed the card's
+          --use_mapper 1 --use_blending 1 --batch 4 (BatchEditor with the
+          parser attached, two buckets of 4), run_deeplab on the blended
+          JPEGs; one bucket of 4 blended in this process through
+          BatchEditor.attach_segmenter (two Segmenter network calls of 4
+          rows, three synthesis calls; its JPEGs beside the CLI's); one
+          item blended on the card and on the CPU, both fed the card's
           masks: renders within ±1
   mapper_serve  BatchEditor.from_files(ffhq256, mapper=) with a seeded
           mapper: an HTTP /edit answer, images/s at batch 16 and 64 beside
@@ -3039,6 +3043,8 @@ MAPPER_LOSS_RTOL = 1e-6
 MAPPER_OUT_REL_L2 = 1e-4
 MAPPER_DIRECTION_ATOL = 1e-5
 MAPPER_CLI_SEEDS = 8
+# generate_fromS --use_blending's --batch: two buckets of the 8 seeds
+MAPPER_CLI_BATCH = 4
 DEEPLAB_SEED = 13
 # the blended renders, card against CPU on the card's masks: the share of
 # uint8 values that differ (by one at most)
@@ -3480,17 +3486,21 @@ def phase_mapper_clis(torch, cfg, net, net2, styles, ckpt, seg, tmp, smi,
     launches from 0: train_latent_mapper (one epoch, --network2 a second
     seeded FFHQ-1024 generator), generate_fromS --use_mapper 1
     --use_whitelist 1, generate_fromS --use_mapper 1 --use_blending 1
-    (STYLEMC_DEEPLAB the seeded parser), run_deeplab on the blended JPEGs.
-    Then one item blended on the card and on the CPU, both fed the card's
-    masks: renders within ±1 per uint8, beside the TF32 control."""
+    --batch MAPPER_CLI_BATCH (STYLEMC_DEEPLAB the seeded parser),
+    run_deeplab on the blended JPEGs. Then the first bucket blended in
+    this process through BatchEditor with `seg` attached, and one item
+    blended on the card and on the CPU, both fed the card's masks:
+    renders within ±1 per uint8, beside the TF32 control."""
     import shutil
 
     import numpy as np
+    from PIL import Image
 
     from stylemc_torch.edit import apply_edit_item_with_blending, \
         mapper_direction
     from stylemc_torch.io import load_generator
     from stylemc_torch.models.mapper import load_mapper
+    from stylemc_torch.serve import BatchEditor
 
     s_file = os.path.join(tmp, "mapper_input.npz")
     np.savez(s_file, s=styles[1:1 + MAPPER_CLI_SEEDS].cpu().numpy())
@@ -3518,10 +3528,12 @@ def phase_mapper_clis(torch, cfg, net, net2, styles, ckpt, seg, tmp, smi,
     # the batched path: originals and edits, one call each
     white = run("generate_fromS_mapper", "generate_fromS", 2, 0, *common,
                 "--outdir", out, "--use_mapper", "1", "--use_whitelist", "1")
-    # blending: three synthesis calls an item
-    blended = run("generate_fromS_blending", "generate_fromS",
-                  3 * MAPPER_CLI_SEEDS, 0, *common, "--outdir", blend,
-                  "--use_mapper", "1", "--use_blending", "1", env=env)
+    # blending: BatchEditor, three synthesis calls a bucket of --batch
+    buckets = -(-MAPPER_CLI_SEEDS // MAPPER_CLI_BATCH)
+    blended = run("generate_fromS_blending", "generate_fromS", 3 * buckets,
+                  0, *common, "--outdir", blend, "--use_mapper", "1",
+                  "--use_blending", "1", "--batch", str(MAPPER_CLI_BATCH),
+                  env=env)
     parse = run("run_deeplab", "run_deeplab", 0, 0, "--dataset_root", blend,
                 "--ckpt", ckpt)
 
@@ -3551,8 +3563,33 @@ def phase_mapper_clis(torch, cfg, net, net2, styles, ckpt, seg, tmp, smi,
                                  for i in range(MAPPER_CLI_SEEDS)],
         "two_generators": "using 2 generators" in train[1]}
 
-    # one item blended on both sides from the card's masks
+    # the CLI's first bucket, blended in this process: one network call
+    # for its originals and one for its edits
     _, gp = load_generator(net, device="cuda")
+    editor = BatchEditor(cfg, gp, mapper_params=mapper,
+                         max_batch=MAPPER_CLI_BATCH, device="cuda")
+    editor.attach_segmenter(seg)
+    calls, rows = seg.deeplab_calls, seg.deeplab_rows
+    bucket, bucket_launches = count_launches(lambda: editor.edit_styles(
+        styles[1:1 + MAPPER_CLI_BATCH], 2.0, pairs=True,
+        prompt=MAPPER_PROMPT))
+    record_launches(paths, cfg, "mapper_blend_bucket", bucket_launches, 3)
+    checks["bucket_deeplab_calls"] = (seg.deeplab_calls - calls,
+                                      seg.deeplab_rows - rows) == (
+                                          2, 2 * MAPPER_CLI_BATCH)
+    checks["bucket_shape"] = bucket.shape == (MAPPER_CLI_BATCH, res,
+                                              2 * res, 3)
+
+    def jpeg(a):
+        buf = io.BytesIO()
+        Image.fromarray(a, "RGB").save(buf, format="jpeg", quality=95)
+        return _decode(buf.getvalue())
+
+    # not gated: the subprocess may pick other cuDNN algorithms
+    bucket_vs_cli = max(int(np.abs(jpeg(a).astype(int) - b.astype(int))
+                            .max()) for a, b in zip(bucket, blend_imgs))
+
+    # one item blended on both sides from the card's masks
     _, gp_cpu = load_generator(net, device="cpu")
     item = styles[1]
     d = mapper_direction(mapper, item)
@@ -3589,6 +3626,10 @@ def phase_mapper_clis(torch, cfg, net, net2, styles, ckpt, seg, tmp, smi,
           "launches": {k: paths[f"cli_{k}"]["launches"] for k in
                        ("train_latent_mapper", "generate_fromS_mapper",
                         "generate_fromS_blending", "run_deeplab")},
+          "blend_bucket": {"rows": MAPPER_CLI_BATCH,
+                           "launches": bucket_launches,
+                           "max_abs_u8_diff_to_cli_jpeg": bucket_vs_cli,
+                           "masks_nonempty": dict(seg.masks_nonempty)},
           "blend_parity": {"max_abs_u8_diff": diff,
                            "max_abs_u8_diff_tf32_control": diff_t,
                            "gate": 1, "off_by_one_share": off,

@@ -5,9 +5,10 @@ Reads `direction_{prompt}.npz` (key 's') or, with --use_mapper 1,
 `mapper_{prompt}.pth` from --outdir and writes one [orig | edited] JPEG
 per item, `{prompt}_{i:03d}.jpeg` with spaces in the prompt turned into
 underscores. A mapper gives each item its own direction (--use_whitelist 1
-zeroes |δ| < 0.1 and the stoplist's ids). --use_blending 1 renders one item
-at a time with DeepLab feature blending (the face parser from
-STYLEMC_DEEPLAB). --projected-w renders G(w) per item instead;
+zeroes |δ| < 0.1 and the stoplist's ids). --use_blending 1 renders --batch
+items at a time through `serve.BatchEditor` with DeepLab feature blending
+(the face parser from STYLEMC_DEEPLAB). --projected-w renders G(w) per item
+instead;
 --power_sweep / --from_video write a GIF per item.
 
   python -m stylemc_torch.cli.generate_fromS --network ffhq.pkl \
@@ -57,9 +58,8 @@ def main(network_pkl, network2_pkl, noise_mode, projected_w, s_input,
          use_blending, use_whitelist, power_sweep, from_video, batch, device):
     from PIL import Image
 
-    from ..edit import (apply_edit_batch, apply_edit_item_with_blending,
-                        mapper_direction, mapper_directions_batched,
-                        to_uint8_hwc)
+    from ..edit import (apply_edit_batch, mapper_direction,
+                        mapper_directions_batched, to_uint8_hwc)
     from ..io import load_generator
     from ..models.stylegan2.generator import synthesis, w_to_s
 
@@ -139,11 +139,24 @@ def main(network_pkl, network2_pkl, noise_mode, projected_w, s_input,
                                     quality=95)
 
     if use_blending:
-        for i in range(n_items):
-            save(i, *apply_edit_item_with_blending(
-                params, cfg, styles[i], direction_for(i), change_power,
-                segmenter, text_prompt=text_prompt, noise_mode=noise_mode,
-                gen2=gen2))
+        from ..serve import BatchEditor
+
+        editor = BatchEditor(
+            cfg, params, mapper_params=mapper,
+            mapper_neg_slope=mapper_neg_slope,
+            mapper_whitelist=bool(use_whitelist), max_batch=batch,
+            noise_mode=noise_mode, device=device)
+        if mapper is None:
+            editor.add_direction(text_prompt, direction.cpu().numpy())
+        editor.attach_segmenter(segmenter, edit_generator=gen2)
+        for lo in range(0, n_items, batch):
+            pairs = editor.edit_styles(
+                styles[lo:lo + batch], change_power, pairs=True,
+                direction_name=None if mapper is not None else text_prompt,
+                prompt=text_prompt)
+            w = pairs.shape[2] // 2
+            for j, pair in enumerate(pairs):
+                save(lo + j, pair[:, :w], pair[:, w:])
         print("time passed:", time.time() - t1)
         return
 

@@ -1,9 +1,11 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and device→host copies
+that overlap the device's work."""
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -27,3 +29,22 @@ def disable_tf32(device: torch.device) -> None:
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def host_later(a: torch.Tensor) -> Callable[[], np.ndarray]:
+    """Start copying `a` to the host (from a CUDA device into pinned
+    memory, without waiting); → a function that waits for the copy and
+    returns the host array."""
+    if a.device.type != "cuda":
+        host = a.cpu().numpy()
+        return lambda: host
+    buf = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+    buf.copy_(a, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait() -> np.ndarray:
+        done.synchronize()
+        return buf.numpy()
+
+    return wait

@@ -4,28 +4,33 @@
 The direction is a saved global direction or, per item, a latent mapper's
 (`mapper_direction`, `mapper_directions_batched`; with use_whitelist,
 |δ| < 0.1 is set to 0 and the stoplist's S-space ids are zeroed). With
-DeepLab feature blending (`apply_edit_item_with_blending`) the edited image
-is rendered again with its features blended toward the original's under
-the earring (32²), background and teeth (64²) masks; the masks are resized
-on the host (cv2 INTER_AREA) and fed to `synthesis`.
+DeepLab feature blending (`blend_edits`, for a batch; its one-row case
+`apply_edit_item_with_blending`) the edited images are rendered again with
+their features blended toward the originals' under the earring (32²),
+background and teeth (64²) masks; the masks are resized on the host (cv2
+INTER_AREA) and fed to `synthesis`, one mask per row.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .device import host_later
+from .models.deeplab import BLEND_MASKS
 from .models.mapper import mapper_apply
 from .models.stylegan2.generator import (GeneratorConfig, N_STYLE_CHANNELS,
                                          S_TRAINABLE_SPACE_CHANNELS,
                                          STYLE_DIM, synthesis)
+from .utils.profiling import record_function, to_device
 
 __all__ = ["N_STYLE_CHANNELS", "STYLE_DIM", "WHITELIST_S_IDS",
            "STOPLIST_S_IDS", "TRAINABLE", "to_u8_nhwc", "to_uint8_hwc",
            "mapper_direction", "mapper_directions_batched",
-           "resize_mask_area", "apply_edit_batch",
+           "resize_mask_area", "apply_edit_batch", "masks_of",
+           "needs_earring_mask", "blend_edits",
            "apply_edit_item_with_blending"]
 
 # flat ids into the [26 · 512] S space (the reference's generate_fromS)
@@ -105,7 +110,97 @@ def apply_edit_batch(gen_params, gen_cfg: GeneratorConfig, styles, direction,
     return orig, edited
 
 
+def masks_of(segmenter, originals_u8: Callable[[], np.ndarray],
+             edits_u8: Callable[[], np.ndarray],
+             need_earring: Sequence[bool]) -> Dict[str, Optional[np.ndarray]]:
+    """The blend masks of N rows, as `Segmenter.blend_masks` gives them,
+    from functions that return the uint8 NHWC renders (`host_later`): the
+    segmenter's own batched call, or for one that parses an image at a
+    time (get_bg_mask(img_u8), get_earring_mouth_teeth_masks(img_u8,
+    need_earring_mask)) its calls row by row."""
+    if hasattr(segmenter, "blend_masks"):
+        return segmenter.blend_masks(originals_u8, edits_u8, need_earring)
+    bg, earring, teeth = [], [], []
+    for orig, edit, need in zip(originals_u8(), edits_u8(), need_earring):
+        bg.append(segmenter.get_bg_mask(orig))
+        e, _, t = segmenter.get_earring_mouth_teeth_masks(
+            edit, need_earring_mask=need)
+        earring.append(np.zeros(t.shape, bool) if e is None else e)
+        teeth.append(t)
+    return {"background": np.stack(bg), "teeth": np.stack(teeth),
+            "earring": np.stack(earring) if any(need_earring) else None}
+
+
+def _masks_on_device(masks: Dict[str, Optional[np.ndarray]], device
+                     ) -> Dict[int, List[torch.Tensor]]:
+    """`synthesis`'s blend_masks from N rows of 512² masks: each resized
+    on the host with INTER_AREA to its blend resolution, one mask per row
+    [N, 1, res, res], all copied to the device in one copy."""
+    plan = [(kind, res) for kind, res in BLEND_MASKS
+            if masks.get(kind) is not None]
+    host = [np.stack([resize_mask_area(m, res) for m in masks[kind]])
+            for kind, res in plan]
+    flat = to_device(np.concatenate([h.ravel() for h in host]).astype(
+        np.float32), device)
+    out: Dict[int, List[torch.Tensor]] = {}
+    at = 0
+    for (_, res), h in zip(plan, host):
+        out.setdefault(res, []).append(
+            flat[at:at + h.size].view(h.shape[0], 1, res, res))
+        at += h.size
+    return out
+
+
+def needs_earring_mask(text_prompt: str) -> bool:
+    """The reference's rule: no earring mask for a prompt that asks for
+    the face of a man."""
+    return "face of a man" not in text_prompt
+
+
 @torch.inference_mode()
+def blend_edits(gen_params, gen_cfg: GeneratorConfig, styles: torch.Tensor,
+                edited: torch.Tensor, segmenter,
+                need_earring: Sequence[bool], noise_mode: str = "const",
+                gen2: Optional[Tuple] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Edits of N rows with DeepLab feature blending, the reference's flow
+    over a batch: render the originals (keeping their 32² and 64²
+    features) and the edits; take the background masks of the originals
+    and the earring and teeth masks of the edits (one network call for
+    each batch, `masks_of`); render the edits again, their 32² features
+    blended toward the originals' under the earring masks and their 64²
+    features under the background, then the teeth masks. A row whose
+    `need_earring` is False gets no earring blend.
+
+    styles, edited: [N, 26, 512]; gen2: (params, cfg) of a second
+    generator that renders the edits. Returns (originals, blended edits),
+    uint8 [N, H, W, 3] on the device."""
+    e_params, e_cfg = gen2 if gen2 is not None else (gen_params, gen_cfg)
+
+    def u8(img):
+        # NHWC in memory too: the host's copies are then plain arrays,
+        # which PIL reads without a strided gather under the GIL
+        return to_u8_nhwc(img).contiguous()
+
+    with record_function("editor.blend", rows=styles.shape[0]):
+        xs_original, img0 = synthesis(
+            gen_params, gen_cfg, styles, noise_mode=noise_mode,
+            return_features={res for _, res in BLEND_MASKS})
+        orig_u8 = u8(img0)
+        # the originals' copy is queued before the edits' render, so the
+        # host parses them while the device renders the edits
+        orig_host = host_later(orig_u8)
+        edit_u8 = u8(synthesis(e_params, e_cfg, edited,
+                               noise_mode=noise_mode))
+        masks = masks_of(segmenter, orig_host, host_later(edit_u8),
+                         need_earring)
+        blended = synthesis(e_params, e_cfg, edited, noise_mode=noise_mode,
+                            blend_masks=_masks_on_device(masks,
+                                                         styles.device),
+                            xs_original=xs_original)
+        return orig_u8, u8(blended)
+
+
 def apply_edit_item_with_blending(gen_params, gen_cfg: GeneratorConfig,
                                   styles_item: torch.Tensor,
                                   direction: torch.Tensor,
@@ -113,43 +208,16 @@ def apply_edit_item_with_blending(gen_params, gen_cfg: GeneratorConfig,
                                   text_prompt: str = "",
                                   noise_mode: str = "const",
                                   gen2: Optional[Tuple] = None):
-    """One item with DeepLab feature blending, the reference's flow: render
-    the original (keeping its per-block features) and the edit; take the
-    background mask of the original and the earring, mouth and teeth masks
-    of the edit; render the edit again, its 32² features blended toward the
-    original's under the earring mask and its 64² features under the
-    background and teeth masks. `segmenter` provides get_bg_mask(img_u8)
-    and get_earring_mouth_teeth_masks(img_u8, need_earring_mask) on uint8
-    HWC images. No earring mask when the prompt contains 'face of a man'.
+    """One item with DeepLab feature blending: `blend_edits` on one row.
+    `segmenter` is a `models.deeplab.Segmenter` or provides
+    get_bg_mask(img_u8) and get_earring_mouth_teeth_masks(img_u8,
+    need_earring_mask) on uint8 HWC images. No earring mask when the
+    prompt contains 'face of a man'.
 
     Returns (orig_u8, edited_u8), uint8 HWC."""
-    e_params, e_cfg = gen2 if gen2 is not None else (gen_params, gen_cfg)
     s = styles_item[None]
-    dev = s.device
-
-    xs_original, img0 = synthesis(gen_params, gen_cfg, s,
-                                  noise_mode=noise_mode, return_features=True)
-    orig_u8 = to_uint8_hwc(img0)[0]
-    bg_mask = segmenter.get_bg_mask(orig_u8)
-
-    s2 = s + direction * change_power
-    img1 = synthesis(e_params, e_cfg, s2, noise_mode=noise_mode)
-    earring_mask, _, teeth_mask = segmenter.get_earring_mouth_teeth_masks(
-        to_uint8_hwc(img1)[0],
-        need_earring_mask="face of a man" not in text_prompt)
-
-    def on_device(mask, res):
-        return torch.from_numpy(resize_mask_area(mask, res)).to(
-            device=dev, dtype=torch.float32)[None, None]
-
-    blend_masks: Dict[int, List[torch.Tensor]] = {}
-    if earring_mask is not None:
-        blend_masks[32] = [on_device(earring_mask, 32)]
-    masks64 = [on_device(m, 64) for m in (bg_mask, teeth_mask)
-               if m is not None]
-    if masks64:
-        blend_masks[64] = masks64
-
-    img1b = synthesis(e_params, e_cfg, s2, noise_mode=noise_mode,
-                      blend_masks=blend_masks, xs_original=xs_original)
-    return orig_u8, to_uint8_hwc(img1b)[0]
+    orig, edited = blend_edits(gen_params, gen_cfg, s,
+                               s + direction * change_power, segmenter,
+                               [needs_earring_mask(text_prompt)],
+                               noise_mode=noise_mode, gen2=gen2)
+    return orig[0].cpu().numpy(), edited[0].cpu().numpy()

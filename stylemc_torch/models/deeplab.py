@@ -10,9 +10,10 @@ unbiased std at run time), GroupNorm(32), ResNet-101 with layer4 at stride
 layout (`conv1_weight`, `bn1`, `layer{1..4}.{i}`, `aspp`), so
 `convert.params_from_numpy` carries it.
 
-`Segmenter` runs the network on the card; the 513² bilinear resize before
-it, the nearest resize of the class map after it and the mask morphology
-(cv2) run on the host, as in the reference.
+`Segmenter` runs the network on the card, one call per batch of images;
+the 513² bilinear resize before it, the nearest resize of the class maps
+after it and the mask morphology (cv2) run on the host per image, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -20,14 +21,16 @@ from __future__ import annotations
 import functools
 import os
 import re
-from typing import Any, Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..convert import params_from_numpy
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, host_later, resolve_device
+from ..utils.profiling import record_function, to_device
 
 CLASSES = ["background", "skin", "nose", "eye_g", "l_eye", "r_eye", "l_brow",
            "r_brow", "l_ear", "r_ear", "mouth", "u_lip", "l_lip", "hair",
@@ -275,73 +278,200 @@ def init_deeplab_params(generator: torch.Generator,
 # ----------------------------------------------------------- mask extraction
 
 
-def preprocess(img_u8: np.ndarray) -> np.ndarray:
-    """uint8 HWC → the network's input [1, 3, 513, 513] float32: PIL
-    bilinear resize, /255, ImageNet mean and std (on the host)."""
+# each byte's normalised value per channel, [3, 256] float32, worked out
+# as the reference does it (/255 in float32, then the mean and std in
+# float64), so that a lookup gives its values bit for bit
+_NORMALISED = ((np.arange(256, dtype=np.float32) / 255.0)[None]
+               - np.asarray(IMAGENET_MEAN)[:, None]) \
+    / np.asarray(IMAGENET_STD)[:, None]
+_NORMALISED = _NORMALISED.astype(np.float32)
+
+
+def _ready(images):
+    """An array, or the function that returns one."""
+    return images() if callable(images) else images
+
+
+def _per_image(fn: Callable, items) -> list:
+    """[fn(item) for item in items], the items spread over threads: PIL's
+    resizes and cv2's morphology release the interpreter lock."""
+    items = list(items)
+    if len(items) < 2:
+        return [fn(item) for item in items]
+    with ThreadPoolExecutor(min(len(items), os.cpu_count() or 1)) as pool:
+        return list(pool.map(fn, items))
+
+
+def preprocess_batch(images_u8) -> np.ndarray:
+    """uint8 NHWC → the network's input [N, 3, 513, 513] float32
+    (contiguous): PIL bilinear resize, /255, ImageNet mean and std (on the
+    host, per image)."""
     from PIL import Image
 
-    img = Image.fromarray(img_u8).resize((INPUT_SIZE, INPUT_SIZE),
-                                         Image.BILINEAR)
-    x = np.asarray(img, np.float32) / 255.0
-    x = (x - np.asarray(IMAGENET_MEAN)) / np.asarray(IMAGENET_STD)
-    return x.transpose(2, 0, 1)[None].astype(np.float32)
+    out = np.empty((len(images_u8), 3, INPUT_SIZE, INPUT_SIZE), np.float32)
+
+    def one(i):
+        img = np.asarray(Image.fromarray(np.asarray(images_u8[i])).resize(
+            (INPUT_SIZE, INPUT_SIZE), Image.BILINEAR))
+        for c in range(3):
+            np.take(_NORMALISED[c], img[..., c], out=out[i, c])
+
+    _per_image(one, range(len(images_u8)))
+    return out
+
+
+def preprocess(img_u8: np.ndarray) -> np.ndarray:
+    """uint8 HWC → the network's input [1, 3, 513, 513] float32."""
+    return preprocess_batch(img_u8[None])
+
+
+def _morph(op, mask: np.ndarray, size: int) -> np.ndarray:
+    """cv2's erode or dilate of a boolean mask by a size² square."""
+    import cv2
+
+    return getattr(cv2, op)(mask.astype("float"), np.ones((size, size))) > 0
+
+
+def bg_mask(cls_map: np.ndarray) -> np.ndarray:
+    """Background or cloth eroded by 20², less hair dilated by 10²."""
+    hair = _morph("dilate", cls_map == CLASSES.index("hair"), 10)
+    bg = (cls_map == CLASSES.index("background")) | \
+        (cls_map == CLASSES.index("cloth"))
+    bg = _morph("erode", bg, 20)
+    bg[hair] = 0
+    return bg
+
+
+def earring_mask(cls_map: np.ndarray) -> np.ndarray:
+    """Earrings (ear_r) dilated by 15²."""
+    return _morph("dilate", cls_map == CLASSES.index("ear_r"), 15)
+
+
+def teeth_mask(cls_map: np.ndarray) -> np.ndarray:
+    """The mouth's inside eroded by 3²."""
+    return _morph("erode", cls_map == CLASSES.index("mouth"), 3)
+
+
+def mouth_mask(cls_map: np.ndarray) -> np.ndarray:
+    """Mouth or lips dilated by 7²."""
+    lips = (cls_map == CLASSES.index("u_lip")) | \
+        (cls_map == CLASSES.index("l_lip"))
+    return _morph("dilate", (cls_map == CLASSES.index("mouth")) | lips, 7)
+
+
+# what feature blending reads, in the order it blends: the earring mask at
+# 32², then the background and teeth masks at 64²
+BLEND_MASKS = (("earring", 32), ("background", 64), ("teeth", 64))
 
 
 class Segmenter:
     """Face parser with the reference's mask morphology: the network on
-    `device`, the resizes and the morphology on the host."""
+    `device`, one call per batch of images with the argmax on the device
+    and one copy of the class maps to the host; the resizes and the
+    morphology on the host, per image, as in the reference.
+
+    Counters: `deeplab_calls` and `deeplab_rows`, the network's calls and
+    the images they parsed; `masks_nonempty`, by kind (background,
+    earring, teeth), the blend masks `blend_masks` made that are not
+    empty."""
 
     def __init__(self, params, resolution: int = 512,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         self.params = params_from_numpy(params, self.device)
         self.resolution = resolution
+        self.deeplab_calls = 0
+        self.deeplab_rows = 0
+        self.masks_nonempty = {kind: 0 for kind, _ in BLEND_MASKS}
+
+    def network_input(self, images_u8) -> torch.Tensor:
+        """uint8 NHWC → the network's input [N, 3, 513, 513] on the
+        device, in one copy."""
+        with record_function("segmenter.preprocess", rows=len(images_u8)):
+            return to_device(preprocess_batch(images_u8), self.device)
 
     @torch.inference_mode()
-    def logits(self, img_u8: np.ndarray) -> torch.Tensor:
-        """uint8 HWC → logits [1, classes, 513, 513] on the device."""
-        x = torch.from_numpy(preprocess(img_u8)).to(self.device)
-        return deeplab_apply(self.params, x)
+    def logits(self, images_u8) -> torch.Tensor:
+        """uint8 NHWC, or one HWC image → logits [N, classes, 513, 513] on
+        the device, in one network call."""
+        images_u8 = np.asarray(images_u8)
+        if images_u8.ndim == 3:
+            images_u8 = images_u8[None]
+        return deeplab_apply(self.params, self.network_input(images_u8))
 
     @torch.inference_mode()
+    def _launch(self, images_u8) -> Callable[[], np.ndarray]:
+        """uint8 NHWC (or the function that returns them) → preprocessed on
+        the host; the network, the argmax and the copy of the 513²
+        class-index maps (uint8) to the host queued on the device; → a
+        function that waits for the maps."""
+        x = self.network_input(_ready(images_u8))
+        n = x.shape[0]
+        with record_function("segmenter.logits", rows=n, bucket=n):
+            maps = host_later(deeplab_apply(self.params, x).argmax(dim=1).to(
+                torch.uint8))
+        self.deeplab_calls += 1
+        self.deeplab_rows += n
+
+        def wait() -> np.ndarray:
+            with record_function("segmenter.logits", rows=n, bucket=n):
+                return maps()
+
+        return wait
+
+    def _resized(self, maps: np.ndarray) -> List[np.ndarray]:
+        from PIL import Image
+
+        return _per_image(lambda m: np.asarray(Image.fromarray(m).resize(
+            (self.resolution, self.resolution), Image.NEAREST)), maps)
+
     def segment(self, img_u8: np.ndarray) -> np.ndarray:
         """uint8 HWC → class-index map (uint8) at self.resolution
         (nearest)."""
-        from PIL import Image
+        maps = self._launch(img_u8[None])()
+        with record_function("segmenter.masks", rows=1):
+            return self._resized(maps)[0]
 
-        pred = self.logits(img_u8)[0].argmax(dim=0).to(torch.uint8).cpu()
-        mask = Image.fromarray(pred.numpy()).resize(
-            (self.resolution, self.resolution), Image.NEAREST)
-        return np.asarray(mask)
+    def blend_masks(self, originals_u8, edits_u8,
+                    need_earring: Sequence[bool]
+                    ) -> Dict[str, Optional[np.ndarray]]:
+        """The masks feature blending reads, for N rows: {'background':
+        the originals' [N, res, res] bool, 'earring': the edits' (all
+        False in a row that needs none; None where no row needs one),
+        'teeth': the edits'}; one network call for the originals and one
+        for the edits. Either batch may be given as the function that
+        returns it (`host_later`, a copy still on its way): the host's
+        steps then overlap the device's work, the originals' preprocessing
+        with what the device does before their copy completes, the
+        edits' with the originals' network call, and the originals' masks
+        with the edits'."""
+        orig = self._launch(originals_u8)
+        edit = self._launch(edits_u8)
+        orig = orig()
+        with record_function("segmenter.masks", rows=len(orig)):
+            bg = np.stack(_per_image(bg_mask, self._resized(orig)))
+        edit = edit()
+        with record_function("segmenter.masks", rows=len(edit)):
+            edit = self._resized(edit)
+            teeth = np.stack(_per_image(teeth_mask, edit))
+            earring = np.stack(_per_image(
+                lambda i: earring_mask(edit[i]) if need_earring[i]
+                else np.zeros(edit[i].shape, bool), range(len(edit)))) \
+                if any(need_earring) else None
+        masks = {"background": bg, "earring": earring, "teeth": teeth}
+        for kind, m in masks.items():
+            if m is not None:
+                self.masks_nonempty[kind] += int(m.any(axis=(1, 2)).sum())
+        return masks
 
     def get_bg_mask(self, img_u8: np.ndarray) -> np.ndarray:
-        import cv2
-
-        mask = self.segment(img_u8)
-        hair = (cv2.dilate((mask == CLASSES.index("hair")).astype("float"),
-                           np.ones((10, 10))) > 0)
-        bg = (mask == CLASSES.index("background")) | \
-             (mask == CLASSES.index("cloth"))
-        bg = (cv2.erode(bg.astype("float"), np.ones((20, 20))) > 0)
-        bg[hair] = 0
-        return bg
+        return bg_mask(self.segment(img_u8))
 
     def get_earring_mouth_teeth_masks(self, img_u8: np.ndarray,
                                       need_earring_mask: bool = True):
-        import cv2
-
         mask = self.segment(img_u8)
-        earring = (cv2.dilate((mask == CLASSES.index("ear_r")).astype("float"),
-                              np.ones((15, 15))) > 0)
-        mouth = mask == CLASSES.index("mouth")
-        lips = (mask == CLASSES.index("u_lip")) | \
-               (mask == CLASSES.index("l_lip"))
-        teeth = (cv2.erode(mouth.astype("float"), np.ones((3, 3))) > 0)
-        mouth = (cv2.dilate((mouth | lips).astype("float"),
-                            np.ones((7, 7))) > 0)
-        if need_earring_mask:
-            return earring, mouth, teeth
-        return None, mouth, teeth
+        earring = earring_mask(mask) if need_earring_mask else None
+        return earring, mouth_mask(mask), teeth_mask(mask)
 
 
 def default_segmenter(ckpt_path: Optional[str] = None,

@@ -25,7 +25,7 @@ under autograd, B2 backward.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Collection, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -290,7 +290,7 @@ def synthesis(params, cfg: GeneratorConfig, styles,
               noise_generator: Optional[torch.Generator] = None,
               blend_masks: Optional[Dict[int, Any]] = None,
               xs_original: Optional[List[Any]] = None,
-              return_features: bool = False):
+              return_features: Union[bool, Collection[int]] = False):
     """Packed S-space styles [N, 26, 512] → image [N, C, R, R] (float32).
 
     Args:
@@ -299,15 +299,21 @@ def synthesis(params, cfg: GeneratorConfig, styles,
         `noise_generator` (the global generator when None).
       blend_masks: {resolution: mask [N or 1, 1, res, res], or a list of
         them applied in order} — blend the block's features toward
-        `xs_original` there.
-      xs_original: per-block features of an earlier
-        `return_features=True` call.
-      return_features: also return the per-block feature list.
+        `xs_original` there, m·x_orig + (1 − m)·x after the block's conv1;
+        a row whose mask is zero keeps its own features exactly.
+      xs_original: per-block features of an earlier `return_features`
+        call.
+      return_features: also return the per-block feature list (each
+        block's features after its conv1 and any blend): True keeps every
+        block's; a collection of resolutions keeps only those blocks'
+        (None in the other places), which is all a later blend reads.
     """
     n = styles.shape[0]
     dev = styles.device
     filt = setup_filter_np(cfg.resample_filter)
     temp_shapes = cfg.temp_shapes()
+    keep = set(cfg.block_resolutions) if return_features is True \
+        else set(return_features or ())
 
     def layer(lp, x, style, up, dtype, noise):
         return _synthesis_layer(lp, x, style, filt, up=up, dtype=dtype,
@@ -333,7 +339,7 @@ def synthesis(params, cfg: GeneratorConfig, styles,
             styles_idx += 2
             img = _torgb_layer(bp["torgb"], x, s_torgb,
                                conv_clamp=cfg.conv_clamp)
-            xs.append(x)
+            xs.append(x if res in keep else None)
             continue
 
         s_conv0 = styles[:, styles_idx, :shapes[0]]
@@ -371,7 +377,7 @@ def synthesis(params, cfg: GeneratorConfig, styles,
                 upper_block, x, img, use_reentrant=False)
         else:
             x, img = upper_block(x, img)
-        xs.append(x)
+        xs.append(x if res in keep else None)
 
     if return_features:
         return xs, img

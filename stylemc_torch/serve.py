@@ -26,6 +26,12 @@ Real photos (an e4e inverter attached):
     editor = BatchEditor.from_files(network="decoder.pt", direction=...,
                                     e4e_ckpt="e4e_ffhq_encode.pt")
     edits_u8 = editor.edit_images(photos_u8_nhwc, change_power=2.0)
+
+DeepLab feature blending (a face parser attached; the reference's
+--use_blending): each bucket renders its originals and edits, is parsed in
+one network call per batch, and renders its edits again blended:
+    editor.attach_segmenter(default_segmenter(device=editor.device))
+    edits_u8 = editor.edit_images(photos_u8_nhwc, direction_name="smile")
 """
 
 from __future__ import annotations
@@ -36,15 +42,15 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .convert import params_from_numpy
-from .device import DeviceLike, disable_tf32, resolve_device
-from .edit import (N_STYLE_CHANNELS, STYLE_DIM, mapper_directions_batched,
-                   to_u8_nhwc)
+from .device import DeviceLike, disable_tf32, host_later, resolve_device
+from .edit import (N_STYLE_CHANNELS, STYLE_DIM, blend_edits,
+                   mapper_directions_batched, needs_earring_mask, to_u8_nhwc)
 from .models.stylegan2.generator import (GeneratorConfig, mapping,
                                          synthesis, w_to_s)
 from .parallel.mesh import as_mesh, replicate, shard_batch
@@ -79,11 +85,13 @@ class BatchEditor:
     def __init__(self, gen_cfg: GeneratorConfig, gen_params,
                  direction: Optional[np.ndarray] = None,
                  mapper_params=None, mapper_neg_slope: float = 0.01,
+                 mapper_whitelist: bool = False,
                  max_batch: int = 64, truncation_psi: float = 0.7,
                  noise_mode: str = "const", precision: str = "fp32",
                  mesh=None, pipeline_chunk: int = 16,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        self.precision = precision
         self.cfg = _apply_precision(gen_cfg, precision)
         if precision == "fp32":
             disable_tf32(self.device)
@@ -105,9 +113,13 @@ class BatchEditor:
             self.mapper_params = as_mapper(mapper_params, self.device)
             self.mapper_params.requires_grad_(False)
         self.mapper_neg_slope = mapper_neg_slope
+        # the mapper's directions with |δ| < 0.1 and the stoplist zeroed
+        self.mapper_whitelist = mapper_whitelist
         self.truncation_psi = truncation_psi
         self.noise_mode = noise_mode
         self._inverter = None  # set by attach_inverter
+        self._segmenter = None  # set by attach_segmenter
+        self._edit_generator = None  # set by attach_segmenter
         self.buckets = [b for b in (1, 2, 4, 8, 16, 32, 64) if b <= max_batch]
         # Large requests render in pipeline_chunk sub-batches; each chunk's
         # uint8 result is copied to pinned host memory asynchronously, so the
@@ -183,6 +195,23 @@ class BatchEditor:
     def has_inverter(self) -> bool:
         return self._inverter is not None
 
+    def attach_segmenter(self, segmenter,
+                         edit_generator: Optional[Tuple] = None) -> None:
+        """Blend every edit with DeepLab feature blending (the reference's
+        --use_blending; `edit.blend_edits`): per bucket, the originals and
+        the edits are rendered, each batch is parsed in one network call,
+        and the edits are rendered again with their 32² and 64² features
+        blended toward the originals' under the earring, background and
+        teeth masks. Blended buckets render on the editor's device.
+
+        segmenter: a `models.deeplab.Segmenter`; edit_generator: (params,
+        cfg) of a second generator that renders the edits and their blend
+        (generate_fromS --network2)."""
+        self._segmenter = segmenter
+        self._edit_generator = None if edit_generator is None else (
+            params_from_numpy(edit_generator[0], self.device),
+            _apply_precision(edit_generator[1], self.precision))
+
     @torch.inference_mode()
     def invert_images(self, images_u8) -> torch.Tensor:
         """uint8 NHWC photos (256² for an e4e_ffhq_encode encoder) → S-space
@@ -209,38 +238,30 @@ class BatchEditor:
 
     def edit_images(self, images_u8, change_power: float = 2.0,
                     pairs: bool = False,
-                    direction_name: Optional[str] = None) -> np.ndarray:
+                    direction_name: Optional[str] = None,
+                    prompt: Optional[str] = None) -> np.ndarray:
         """Real photos in, edited renders out; pairs=True returns
         [reconstruction | edited], the offline pipeline's two panels."""
         return self.edit_styles(self.invert_images(images_u8),
                                 change_power=change_power, pairs=pairs,
-                                direction_name=direction_name)
+                                direction_name=direction_name, prompt=prompt)
 
     def _directions_for(self, styles: torch.Tensor,
                         name: Optional[str] = None) -> torch.Tensor:
-        """The named direction, else the mapper's directions of `styles`
-        (no whitelist), else the constructor's direction."""
+        """The named direction, else the mapper's directions of `styles`,
+        else the constructor's direction."""
         if name is not None:
             if name not in self.directions:
                 raise KeyError(f"unknown direction {name!r}; loaded: "
                                f"{sorted(self.directions)}")
             return self.directions[name]
         if self.mapper_params is not None:
-            return mapper_directions_batched(self.mapper_params, styles,
-                                             neg_slope=self.mapper_neg_slope)
+            return mapper_directions_batched(
+                self.mapper_params, styles, neg_slope=self.mapper_neg_slope,
+                use_whitelist=self.mapper_whitelist)
         if self.direction is None:
             raise ValueError("no direction or mapper loaded")
         return self.direction
-
-    def _start_copy(self, a: torch.Tensor):
-        """Start a device→host copy; returns (host tensor, event or None)."""
-        if self.device.type != "cuda":
-            return a, None
-        host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-        host.copy_(a, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        return host, ev
 
     # -------------------------------------------------------------- public
 
@@ -263,21 +284,24 @@ class BatchEditor:
     @torch.inference_mode()
     def edit_styles(self, styles, change_power: float = 2.0,
                     pairs: bool = False,
-                    direction_name: Optional[str] = None) -> np.ndarray:
+                    direction_name: Optional[str] = None,
+                    prompt: Optional[str] = None) -> np.ndarray:
         """styles [N, 26, 512] → uint8 [N, H, W, 3]; pairs=True returns
         [orig | edited] side by side; direction_name selects a named
-        direction (default: the mapper's, else the constructor's)."""
+        direction (default: the mapper's, else the constructor's). With a
+        face parser attached the edits are blended; `prompt` (default: the
+        direction's name) decides the earring mask, none for a prompt
+        that contains 'face of a man'."""
         styles = torch.as_tensor(styles, dtype=torch.float32,
                                  device=self.device)
+        need_earring = needs_earring_mask(prompt or direction_name or "")
         step = min(self.pipeline_chunk or self.buckets[-1], self.buckets[-1])
-        pending: List[Tuple[int, torch.Tensor, Optional[torch.cuda.Event]]] = []
+        pending: List[Tuple[int, Callable[[], np.ndarray]]] = []
         outs: List[np.ndarray] = []
 
-        def fetch(n, host, ev):
+        def fetch(n, host):
             with record_function("editor.fetch", rows=n):
-                if ev is not None:
-                    ev.synchronize()
-                outs.append(host[:n].numpy())
+                outs.append(host()[:n])
 
         for lo in range(0, styles.shape[0], step):
             chunk = styles[lo:lo + step]
@@ -286,10 +310,19 @@ class BatchEditor:
             with record_function("editor.render", rows=n,
                                  bucket=padded.shape[0]):
                 d = self._directions_for(padded, direction_name)
-                img = self._render_u8(padded + d * change_power)
+                if self._segmenter is None:
+                    img = self._render_u8(padded + d * change_power)
+                    orig = self._render_u8(padded) if pairs else None
+                else:
+                    orig, img = blend_edits(
+                        self.params, self.cfg, padded,
+                        padded + d * change_power, self._segmenter,
+                        [need_earring] * padded.shape[0],
+                        noise_mode=self.noise_mode,
+                        gen2=self._edit_generator)
                 if pairs:
-                    img = torch.cat([self._render_u8(padded), img], dim=2)
-                pending.append((n, *self._start_copy(img)))
+                    img = torch.cat([orig, img], dim=2)
+                pending.append((n, host_later(img)))
             if len(pending) >= max(1, self.max_inflight_chunks):
                 fetch(*pending.pop(0))
         for item in pending:
